@@ -1,0 +1,39 @@
+"""Weight bridge: flax variables -> the port's ``state_dict``.
+
+``flat`` holds the reference's variables flattened to ``params/a/b/c`` and
+``batch_stats/a/b/c`` keys, the key form of ``bench.py:_load_bench_ckpt``.
+Submodule names in the port equal the flax names, so the mapping is
+mechanical:
+
+* ``nn.Dense`` ``kernel [in, out]`` (every 2-D kernel) becomes
+  ``nn.Linear.weight [out, in]``;
+* ``nn.LayerNorm`` ``scale`` (modules named ``norm``/``decoder_norm``)
+  becomes ``weight``;
+* everything else keeps its name and shape: conv kernels
+  ``[taps, Ci, Co]``, BatchNorm ``scale``/``bias``/``mean``/``var``, the
+  vmapped refiners' leading subnet axis, the queries ``[S, Q, H]``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+LAYERNORMS = ("norm", "decoder_norm")
+
+
+def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        coll, *path, leaf = key.split("/")
+        if coll not in ("params", "batch_stats"):
+            raise KeyError(f"unknown variable collection in {key!r}")
+        arr = np.array(value, dtype=np.float32)
+        if coll == "params" and leaf == "kernel" and arr.ndim == 2:
+            leaf, arr = "weight", arr.T
+        elif coll == "params" and path and path[-1] in LAYERNORMS and leaf == "scale":
+            leaf = "weight"
+        out[".".join([*path, leaf])] = torch.from_numpy(arr.copy())
+    return out

@@ -1,0 +1,150 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources in ``pasco_torch/csrc/*.cu`` have a plain C interface.  At
+first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library under ``build/pasco_torch/<hash>/`` of the checkout (the hash
+covers the sources and flags, so an edit rebuilds) and loaded with
+``ctypes``.  Nothing here runs at import time: the CPU tests import every
+module on a machine without ``nvcc``.
+
+Every pointer and the stream cross the boundary as ``ctypes.c_void_p``;
+each C entry returns ``cudaGetLastError()`` after its launch and
+:func:`check` raises if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pasco_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+L = ctypes.c_longlong
+
+# C signature of every entry point (all return cudaError_t as int).
+_SIGNATURES = {
+    # x, mask, w, bias, aff_a, aff_c, skip, out, tile_ids, n_active,
+    # X, Z, Y, Ci, Co, TX, TZ, relu_in, relu_out, n_tiles, stream
+    "pasco_masked_conv3": [P] * 10 + [I] * 10 + [P],
+    # x, mask_in, mask_out, w, bias, a1, c1, a2, c2, out, tile_ids,
+    # n_active, X, Z, Y, Ci, Co, n_tiles, stream
+    "pasco_down2_fused": [P] * 12 + [I] * 6 + [P],
+    # parent, parent_keep, child_mask, union_mask, skip, wd, bd, a1, c1,
+    # a2, c2, wr, br, box_min, out, tile_ids, n_active,
+    # X2, Z2, Y2, Ci, Co, scale, n_tiles, stream
+    "pasco_up_preamble": [P] * 17 + [I] * 7 + [P],
+    # keep, payload, n, E, cap, block_counts, block_offsets, vals, src,
+    # valid, total, stream
+    "pasco_stream_extract": [P, P, L, I, I, P, P, P, P, P, P, P],
+}
+
+# Launch counts of the kernel wrappers: each wrapper adds one where it
+# launches its kernel, and nowhere else.
+LAUNCHES: Dict[str, int] = {
+    "masked_conv3": 0, "down2_fused": 0, "up_preamble": 0,
+    "stream_extract": 0,
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build() -> Path:
+    """Compile the sources (if this hash is not built yet); returns the
+    library path.  Raises with nvcc's output on failure."""
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = _BUILD_ROOT / h.hexdigest()[:16]
+    lib_path = out_dir / "libpasco_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libpasco_kernels.{os.getpid()}.so"
+    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), *cus]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            dll = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(dll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = dll
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+            device: Optional[torch.device] = None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``
+    (and ``shape``/``device`` where given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

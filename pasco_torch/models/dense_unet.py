@@ -1,0 +1,377 @@
+"""Dense-with-masks PaSCo network, inference at ``n_infers == 1``
+(counterpart of ``pasco_tpu/models/dense_unet.py:85-1506``).
+
+Every U-Net stage computes on a dense ``[X, Z, Y, C]`` volume over the
+working box with an ``[X, Z, Y]`` occupancy mask.  Stage interiors run
+through the four hand-written kernels (``pasco_torch/ops``): the residual
+and refiner convs through ``masked_conv3``, the encoder downs through
+``down2_fused``, the decoder preambles through ``up_preamble`` and every
+extraction through ``stream_extract``.  Each op returns exact zeros at
+mask-invalid cells, so no stage needs a separate masking pass.  On a CPU
+tensor the ops run their plain PyTorch versions.
+
+Submodule and parameter names equal the flax names, and parameters keep
+the flax shapes (conv kernels ``[taps, Ci, Co]``, BN ``scale``/``bias``/
+``mean``/``var``); :mod:`pasco_torch.convert` maps a flax variable tree
+onto this module.  Training, MC dropout and ``n_infers > 1`` are not
+ported yet (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from pasco_tpu.core.config import PaSCoConfig
+from pasco_torch.core.sparse import Box, SparseGrid, stack_grids
+from pasco_torch.models.blocks import ConvParams
+from pasco_torch.models.bottleneck import SPCDense3D
+from pasco_torch.models.norm import TRAINING_NOT_PORTED, BatchNorm
+from pasco_torch.models.transformer import TransformerPredictor
+from pasco_torch.models.unet import ModelInput, ModelOutput
+from pasco_torch.ops.conv import conv_tiles, masked_conv3
+from pasco_torch.ops.deconv import up_preamble, up_tiles
+from pasco_torch.ops.dense_ops import (
+    bbox_mask, extract_sparse, maxpool2_mask, scatter_max_rows, upsample2_mask)
+from pasco_torch.ops.down import down2_fused, down_tiles
+
+NEG = -1e30   # finite featurizer sentinel (dense_unet.py:1137-1145)
+
+
+def _tiles(fn, mask):
+    """Tile list for the CUDA kernels; the plain versions take none."""
+    return fn(mask) if mask.is_cuda else None
+
+
+class PointMLP(nn.Module):
+    """CylinderFeat point MLP (``unet3d_sparse_v2.py:22-34``)."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.bn_in = BatchNorm(in_dim)
+        self.fc1, self.bn1 = nn.Linear(in_dim, 64), BatchNorm(64)
+        self.fc2, self.bn2 = nn.Linear(64, 128), BatchNorm(128)
+        self.fc3, self.bn3 = nn.Linear(128, 256), BatchNorm(256)
+        self.fc4 = nn.Linear(256, out_dim)
+
+    def forward(self, pf, pm):
+        f = self.bn_in(pf, pm)
+        f = torch.relu(self.bn1(self.fc1(f), pm))
+        f = torch.relu(self.bn2(self.fc2(f), pm))
+        f = torch.relu(self.bn3(self.fc3(f), pm))
+        f = self.fc4(f)
+        return torch.where(pm[:, None], f, torch.zeros((), device=f.device))
+
+
+class DenseResBlock(nn.Module):
+    """Pre-activation residual block as two fused convs:
+    ``conv1`` with the bn1 affine + relu prologue, ``conv2`` with the bn2
+    prologue and the residual add + relu epilogue (``dense_unet.py:471-505``)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.bn1, self.bn2 = BatchNorm(ch), BatchNorm(ch)
+        self.conv1 = ConvParams((27, ch, ch), (ch,))
+        self.conv2 = ConvParams((27, ch, ch), (ch,))
+
+    def forward(self, x, mask, tiles):
+        f = masked_conv3(x, mask, self.conv1.kernel, self.conv1.bias,
+                         affine=self.bn1.affine(), relu_in=True, tiles=tiles)
+        return masked_conv3(f, mask, self.conv2.kernel, self.conv2.bias,
+                            affine=self.bn2.affine(), relu_in=True, skip=x,
+                            relu_out=True, tiles=tiles)
+
+
+class DenseDown(nn.Module):
+    """ks=2/s=2 down conv + bn1 + leaky + bn2 + relu, one fused kernel."""
+
+    def __init__(self, ci: int, co: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros((8, ci, co)))
+        self.bias = nn.Parameter(torch.zeros((co,)))
+        self.bn1, self.bn2 = BatchNorm(co), BatchNorm(co)
+
+    def forward(self, x, mask):
+        new_mask = maxpool2_mask(mask)
+        out = down2_fused(x, mask, new_mask, self.kernel, self.bias,
+                          self.bn1.affine(), self.bn2.affine(),
+                          tiles=_tiles(down_tiles, new_mask))
+        return out, new_mask
+
+
+class DenseEncStage(nn.Module):
+    """Optional down step + residual stack; returns (x, mask)."""
+
+    def __init__(self, ci: int, co: int, down: bool, n_res: int):
+        super().__init__()
+        if down:
+            self.down = DenseDown(ci, co)
+        self.n_res = n_res
+        for i in range(n_res):
+            self.add_module(f"res{i}", DenseResBlock(co))
+
+    def forward(self, x, mask):
+        if hasattr(self, "down"):
+            x, mask = self.down(x, mask)
+        tiles = _tiles(conv_tiles, mask)
+        for i in range(self.n_res):
+            x = getattr(self, f"res{i}")(x, mask, tiles)
+        return x, mask
+
+
+class DenseDecoderStage(nn.Module):
+    """Generative decoder stage: fused up-preamble (deconv, up_bn, leaky,
+    coords, resize_bn, resize, union skip add) -> residual stack ->
+    per-subnet semantic heads (``dense_unet.py:698-969``)."""
+
+    def __init__(self, ci: int, ch: int, n_infers: int, n_classes: int,
+                 n_res: int, scale: int):
+        super().__init__()
+        self.scale, self.n_res = scale, n_res
+        self.up_kernel = nn.Parameter(torch.zeros((8, ci, ch)))
+        self.up_bias = nn.Parameter(torch.zeros((ch,)))
+        self.up_bn = BatchNorm(ch)
+        self.resize_bn = BatchNorm(ch + 3)
+        self.resize = ConvParams((1, ch + 3, ch), (ch,))
+        for i in range(n_res):
+            self.add_module(f"res{i}", DenseResBlock(ch))
+        self.head_kernel = nn.Parameter(torch.zeros((n_infers, ch, n_classes)))
+        self.head_bias = nn.Parameter(torch.zeros((n_infers, n_classes)))
+
+    def forward(self, x, parent_keep, skip, skip_mask, box, gmin, gmax):
+        msk_child = upsample2_mask(parent_keep) & bbox_mask(
+            box, self.scale, gmin, gmax)
+        msk = msk_child | skip_mask
+        x = up_preamble(
+            x, parent_keep, msk_child, msk, skip, box, self.scale,
+            self.up_kernel, self.up_bias, self.up_bn.affine(),
+            self.resize_bn.affine(), self.resize.kernel[0], self.resize.bias,
+            tiles=_tiles(up_tiles, msk),
+        )
+        tiles = _tiles(conv_tiles, msk)
+        for i in range(self.n_res):
+            x = getattr(self, f"res{i}")(x, msk, tiles)
+        return self._finish(x, msk)
+
+    def _finish(self, x, msk):
+        """Per-subnet sem heads.  The logits are rounded to bf16 and the
+        argmax reads the ROUNDED logits, like the reference
+        (``dense_unet.py:898-915, 951-968``): extraction sets depend on the
+        tie rule.  Returns (x, sem [X,Z,Y,S,K] bf16, top_class [X,Z,Y,S],
+        msk)."""
+        S, ch, K = self.head_kernel.shape
+        X, Z, Y, _ = x.shape
+        w = self.head_kernel.to(x.dtype).float().permute(1, 0, 2).reshape(ch, S * K)
+        sem = x.reshape(-1, ch).float() @ w + self.head_bias.reshape(-1)
+        sem = sem.to(torch.bfloat16).reshape(X, Z, Y, S, K)
+        top_class = sem.argmax(dim=-1).to(torch.int32)
+        sem = torch.where(msk[..., None, None], sem,
+                          torch.zeros((), dtype=sem.dtype, device=sem.device))
+        top_class = torch.where(msk[..., None], top_class,
+                                torch.zeros_like(top_class))
+        return x, sem, top_class, msk
+
+
+class DenseVoxelFeatsRefiner(nn.Module):
+    """Per-subnet two-conv refiner (``decoder_v3.py:266-283``).  The
+    parameters carry the vmapped subnet axis in front, as in flax."""
+
+    def __init__(self, ch: int, n_infers: int):
+        super().__init__()
+        S = n_infers
+        self.conv1 = ConvParams((S, 27, ch, ch))
+        self.bn = BatchNorm((S, ch))
+        self.conv2 = ConvParams((S, 27, ch, ch), (S, ch))
+
+    def forward(self, x, keep, s: int):
+        """Subnet ``s``: conv1 with a mask-only prologue and no bias, then
+        conv2 with the bn affine + relu prologue (``dense_unet.py:1034-1061``);
+        active tiles come from the subnet's sparser keep set."""
+        tiles = _tiles(conv_tiles, keep)
+        a, c = self.bn.affine()
+        g = masked_conv3(x, keep, self.conv1.kernel[s], tiles=tiles)
+        return masked_conv3(g, keep, self.conv2.kernel[s], self.conv2.bias[s],
+                            affine=(a[s], c[s]), relu_in=True, tiles=tiles)
+
+
+class DensePaSCoNet(nn.Module):
+    """Dense-mode end-to-end network; same inputs/outputs as the reference."""
+
+    def __init__(self, cfg: PaSCoConfig):
+        super().__init__()
+        m = cfg.model
+        if m.n_infers != 1:
+            raise NotImplementedError(
+                "n_infers > 1 is not ported yet (ROADMAP.md, queue 1 item 1)")
+        self.cfg = cfg
+        fm = m.f_maps
+        n_res = m.res_blocks if m.res_blocks is not None else (0 if m.heavy_decoder else 3)
+        dec_n_res = m.res_blocks if m.res_blocks is not None else (7 if m.heavy_decoder else 3)
+        S = m.n_infers
+        self.point_mlp = PointMLP(m.in_channels, m.f)
+        self.enc_in = ConvParams((1, S * m.f, fm[0]), (fm[0],))
+        self.enc_s1 = DenseEncStage(fm[0], fm[0], False, n_res)
+        for si, stride in enumerate((2, 4, 8)):
+            self.add_module(f"enc_s{stride}", DenseEncStage(fm[si], fm[si + 1], True, n_res))
+        self.bottleneck = SPCDense3D(fm[3])
+        dec_ch = fm[::-1]
+        for i, scale in enumerate((4, 2, 1)):
+            self.add_module(f"dec_s{scale}", DenseDecoderStage(
+                dec_ch[i], dec_ch[i + 1], S, m.n_classes, dec_n_res, scale))
+        for scale, ch in zip((4, 2, 1), dec_ch[1:]):
+            self.add_module(f"voxel_feats_s{scale}", DenseVoxelFeatsRefiner(ch, S))
+        self.transformer = TransformerPredictor(
+            m.transformer, m.n_classes, S, (m.f * 4, m.f * 2, m.f))
+        self.eval()   # inference only
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded random init with the flax initializer families: kaiming-
+        uniform over (taps * Ci) for the sparse-layout convs
+        (``blocks.py:29-34``), variance-scaling(2, fan_in, uniform) for the
+        bottleneck, lecun-normal for dense layers and heads, normal(1) for
+        the queries, zero biases, identity BatchNorm/LayerNorm."""
+
+        def uniform_(p, bound):
+            p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound - bound)
+
+        def lecun_(p, fan_in):
+            # truncated normal at +-2 std, rescaled to unit variance (flax)
+            t = torch.randn(p.shape, generator=generator)
+            while (bad := t.abs() > 2).any():
+                t[bad] = torch.randn(int(bad.sum()), generator=generator)
+            p.copy_(t * math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                w = torch.empty(mod.weight.shape[::-1])
+                lecun_(w, w.shape[0])
+                mod.weight.copy_(w.T)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, BatchNorm):
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+                mod.mean.zero_()
+                mod.var.fill_(1.0)
+            elif isinstance(mod, (ConvParams, DenseDown)) and mod.bias is not None:
+                mod.bias.zero_()
+            elif isinstance(mod, DenseDecoderStage):
+                mod.up_bias.zero_()
+                mod.head_bias.zero_()
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "kernel" and ".bottleneck." in f".{name}":
+                kx, ky, kz, ci, _ = p.shape
+                uniform_(p, math.sqrt(6.0 / (kx * ky * kz * ci)))
+            elif leaf in ("kernel", "up_kernel"):
+                k, ci = p.shape[-3], p.shape[-2]
+                uniform_(p, math.sqrt(1.0 / (k * ci)))
+            elif leaf == "head_kernel":
+                S, ch, _ = p.shape
+                lecun_(p, S * ch)
+            elif leaf in ("query_feat", "query_embed"):
+                p.copy_(torch.randn(p.shape, generator=generator))
+
+    def forward(self, inp: ModelInput, train: bool = False,
+                mc_dropout: bool = False) -> ModelOutput:
+        if train or mc_dropout or self.training:
+            raise NotImplementedError(TRAINING_NOT_PORTED)
+        cfg = self.cfg
+        m = cfg.model
+        cap = cfg.capacity
+        S = m.n_infers
+        cd = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
+        box = Box.create(inp.global_min, cfg.scene.box_extent)
+        ex, ey, ez = box.extent
+        n_cells = ex * ey * ez
+
+        # ---- point MLP + scatter-max featurizer --------------------------
+        pm = inp.point_mask
+        f = self.point_mlp(inp.point_feats, pm)
+        rel = inp.point_coords[:, 1:] - box.minimum[None, :]
+        in_box = (pm & (rel >= 0).all(-1) & (rel[:, 0] < ex)
+                  & (rel[:, 1] < ey) & (rel[:, 2] < ez))
+        cell = (rel[:, 0] * ez + rel[:, 2]) * ey + rel[:, 1]
+        flat_idx = torch.where(in_box, cell, torch.full_like(cell, n_cells))
+        grid_f = scatter_max_rows(f.to(cd), flat_idx, n_cells, NEG)[:-1]
+        occ = grid_f.amax(-1) > torch.tensor(NEG, dtype=cd)
+        # Values at occupied cells are unchanged; empties become zero (the
+        # sentinel never reaches a product).
+        x = torch.where(occ[:, None], grid_f, torch.zeros((), dtype=cd,
+                                                          device=grid_f.device))
+        mask1 = occ.reshape(ex, ez, ey)
+        x = x.reshape(ex, ez, ey, m.f)
+
+        # ---- encoder -------------------------------------------------------
+        w_in = self.enc_in.kernel[0].to(cd)
+        x = (x.reshape(-1, x.shape[-1]) @ w_in + self.enc_in.bias.to(cd))
+        x = torch.where(mask1.reshape(-1, 1), x, torch.zeros((), dtype=cd,
+                                                              device=x.device))
+        x = x.reshape(ex, ez, ey, -1)
+        enc = {1: self.enc_s1(x, mask1)}
+        for stride in (2, 4, 8):
+            enc[stride] = getattr(self, f"enc_s{stride}")(*enc[stride // 2])
+
+        # ---- dense bottleneck at stride 8 ([X, Y, Z] inside) --------------
+        x8 = enc[8][0].permute(0, 2, 1, 3).float()
+        xb = self.bottleneck(x8, cd).to(cd).permute(0, 2, 1, 3)
+        mask8 = bbox_mask(box, 8, inp.global_min, inp.global_max)
+        x = torch.where(mask8[..., None], xb, torch.zeros((), dtype=cd,
+                                                          device=xb.device)).contiguous()
+        parent_keep = mask8
+
+        # ---- generative decoder + extraction -------------------------------
+        xs: Dict[int, SparseGrid] = {}
+        sem_at: Dict[int, torch.Tensor] = {}
+        dense = {}
+        for scale in (4, 2, 1):
+            stage = getattr(self, f"dec_s{scale}")
+            x, sem, top_class, msk = stage(
+                x, parent_keep, enc[scale][0], enc[scale][1], box,
+                inp.global_min, inp.global_max)
+            keep = (top_class != 0).any(-1) & msk
+            dense[scale] = (x, top_class, keep)
+            # Only scale 1's logits are consumed at inference; the grids'
+            # features have no consumer (zeros, as in the reference).
+            dcap = cap.dec_capacity(scale)
+            payload = sem.reshape(*sem.shape[:3], -1) if scale == 1 else None
+            coords, valid, vals = extract_sparse(keep, box, scale, dcap, payload)
+            feats = torch.zeros((dcap, x.shape[-1]), dtype=x.dtype, device=x.device)
+            xs[scale] = SparseGrid(coords, feats, valid, scale)
+            sem_at[scale] = (
+                vals.float().reshape(dcap, S, m.n_classes) if scale == 1
+                else torch.zeros((dcap, S, m.n_classes), device=x.device)
+            )
+            parent_keep = keep
+
+        # ---- per-subnet refiners + extraction ------------------------------
+        panop_grids: Dict[int, SparseGrid] = {}
+        for scale in (4, 2, 1):
+            xd, top_class, dkeep = dense[scale]
+            refiner = getattr(self, f"voxel_feats_s{scale}")
+            sub = []
+            for s in range(S):
+                keep_s = ((top_class[..., s] != 0) & dkeep & bbox_mask(
+                    box, scale, inp.subnet_min[s], inp.subnet_max[s]))
+                refined = refiner(xd, keep_s, s)
+                coords, valid, vals = extract_sparse(
+                    keep_s, box, scale, cap.panop_capacity(scale), refined)
+                coords[:, 0] = s
+                sub.append(SparseGrid(coords, vals, valid, scale))
+            panop_grids[scale] = stack_grids(sub)
+
+        return ModelOutput(
+            sem_grids=xs,
+            sem_logits=sem_at,
+            panop_grids=panop_grids,
+            # the pruned logits feed a training loss only
+            sem_logits_pruned=torch.zeros((S, cap.panop_s1, m.n_classes),
+                                          device=x.device),
+            predictor=self.transformer(panop_grids, box),
+        )

@@ -1,0 +1,122 @@
+"""Kernel 1: ``masked_conv3``, the fused 3x3x3 conv of every residual block
+and refiner (replaces ``pasco_tpu/ops/pallas_conv.py:fused_packed_conv``).
+
+    x'  = mask * [relu](a * x + c)
+    out = mask * [relu](conv3_same(x', w) + bias [+ skip])
+
+A CPU tensor takes :func:`masked_conv3_plain`; a CUDA tensor launches the
+CUDA kernel ``csrc/masked_conv3.cu`` or raises.  The kernel note (what
+bounds it on the card and how the design answers) is at the top of the
+CUDA source.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from pasco_torch import kernels
+from pasco_torch.ops.dense_ops import conv3_dense
+
+TY = 16           # tile y extent (kernel constant)
+TILE_ROWS = 8     # (x, z) rows per tile: TX * TZ (kernel constant)
+
+Affine = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class Tiles(NamedTuple):
+    """Device-built tile list: active tile ids first, their count on the
+    device (no host sync), and the static tile geometry."""
+
+    ids: torch.Tensor        # int32 [n_tiles]
+    n_active: torch.Tensor   # int32 [1]
+    n_tiles: int
+    tx: int = 1
+    tz: int = 1
+
+
+def _active_list(active: torch.Tensor, **geom) -> Tiles:
+    ids = torch.argsort((~active).to(torch.uint8), stable=True).to(torch.int32)
+    n_active = active.sum(dtype=torch.int32).reshape(1)
+    return Tiles(ids, n_active, active.numel(), **geom)
+
+
+def conv_tiles(mask: torch.Tensor) -> Tiles:
+    """Tiles of ``TX x TZ x 16`` cells of an ``[X, Z, Y]`` mask with any
+    valid cell.  Built once per stage and shared by its convs."""
+    X, Z, Y = mask.shape
+    tz = min(TILE_ROWS, 1 << max(Z - 1, 0).bit_length())
+    tx = TILE_ROWS // tz
+    nbx, nbz, nby = -(-X // tx), -(-Z // tz), -(-Y // TY)
+    m = torch.zeros((nbx * tx, nbz * tz, nby * TY), dtype=torch.bool,
+                    device=mask.device)
+    m[:X, :Z, :Y] = mask
+    active = m.reshape(nbx, tx, nbz, tz, nby, TY).any(5).any(3).any(1).reshape(-1)
+    return _active_list(active, tx=tx, tz=tz)
+
+
+def masked_conv3_plain(x, mask, weight, bias=None, affine: Affine = None,
+                       relu_in=False, skip=None, relu_out=False):
+    """The same function in plain PyTorch (F.conv3d on a permuted view)."""
+    m = mask[..., None]
+    y = x.float()
+    if affine is not None:
+        y = affine[0].float() * y + affine[1].float()
+    if relu_in:
+        y = torch.relu(y)
+    y = torch.where(m, y, torch.zeros((), dtype=y.dtype, device=y.device))
+    out = conv3_dense(y.to(x.dtype), weight).float()
+    if bias is not None:
+        out = out + bias.float()
+    if skip is not None:
+        out = out + skip.float()
+    if relu_out:
+        out = torch.relu(out)
+    return torch.where(m, out, torch.zeros((), device=out.device)).to(x.dtype)
+
+
+def masked_conv3(
+    x: torch.Tensor,                  # [X, Z, Y, Ci]
+    mask: torch.Tensor,               # [X, Z, Y] bool
+    weight: torch.Tensor,             # [27, Ci, Co]
+    bias: Optional[torch.Tensor] = None,   # [Co]
+    affine: Affine = None,            # (a, c) [Ci] f32 prologue
+    relu_in: bool = False,
+    skip: Optional[torch.Tensor] = None,   # [X, Z, Y, Co]
+    relu_out: bool = False,
+    tiles: Optional[Tiles] = None,    # from conv_tiles(mask)
+) -> torch.Tensor:
+    if not x.is_cuda:
+        return masked_conv3_plain(x, mask, weight, bias, affine, relu_in,
+                                  skip, relu_out)
+    X, Z, Y, ci = x.shape
+    co = weight.shape[-1]
+    dev = x.device
+    kernels.require(x, "x", torch.bfloat16)
+    kernels.require(mask, "mask", torch.bool, (X, Z, Y), dev)
+    if tuple(weight.shape) != (27, ci, co):
+        raise ValueError(f"weight shape {tuple(weight.shape)} != (27, {ci}, {co})")
+    if ci % 32 or co % 64:
+        raise ValueError(f"masked_conv3 needs Ci % 32 == 0 and Co % 64 == 0, got {ci}, {co}")
+    w = weight.to(device=dev, dtype=torch.bfloat16).contiguous()
+    b = None if bias is None else bias.to(device=dev, dtype=torch.float32).contiguous()
+    a = c = None
+    if affine is not None:
+        a = affine[0].to(device=dev, dtype=torch.float32).contiguous()
+        c = affine[1].to(device=dev, dtype=torch.float32).contiguous()
+    if skip is not None:
+        kernels.require(skip, "skip", torch.bfloat16, (X, Z, Y, co), dev)
+    if tiles is None:
+        tiles = conv_tiles(mask)
+    out = torch.zeros((X, Z, Y, co), dtype=torch.bfloat16, device=dev)
+    err = kernels.lib().pasco_masked_conv3(
+        x.data_ptr(), mask.data_ptr(), w.data_ptr(), kernels.ptr(b),
+        kernels.ptr(a), kernels.ptr(c), kernels.ptr(skip), out.data_ptr(),
+        tiles.ids.data_ptr(), tiles.n_active.data_ptr(), X, Z, Y, ci, co,
+        tiles.tx, tiles.tz, int(relu_in), int(relu_out), tiles.n_tiles,
+        kernels.stream_ptr(x),
+    )
+    kernels.check(err, "masked_conv3")
+    kernels.LAUNCHES["masked_conv3"] += 1
+    return out

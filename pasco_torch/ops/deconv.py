@@ -1,0 +1,114 @@
+"""Kernel 3: ``up_preamble``, the decoder stage preamble (replaces
+``pasco_tpu/ops/pallas_deconv.py:up_preamble_padded``).
+
+Per child cell ``c`` of parent ``p``:
+
+    d   = leaky(a1 * ((parent * parent_keep)[p] @ wd[k(c)] + bd) + c1)
+    xc  = [d, cell_coords(box, scale)[c] / scale]
+    r   = (a2 * xc + c2) @ wr + br
+    out = union[c] * (child[c] * r + skip[c])
+
+A CPU tensor takes :func:`up_preamble_plain`; a CUDA tensor launches
+``csrc/up_preamble.cu`` or raises.  The kernel note is at the top of the
+CUDA source.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from pasco_torch import kernels
+from pasco_torch.core.sparse import Box
+from pasco_torch.ops.conv import Tiles
+from pasco_torch.ops.dense_ops import cell_coords, deconv2_dense, maxpool2_mask
+from pasco_torch.ops.down import row_tiles
+
+ROWS = 32    # parents per block (kernel constant)
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def up_tiles(union_mask: torch.Tensor) -> Tiles:
+    """Parent tiles of 32 flat parents with any child in the union mask."""
+    return row_tiles(maxpool2_mask(union_mask), ROWS)
+
+
+def up_preamble_plain(parent, parent_keep, child_mask, union_mask, skip, box,
+                      scale, wd, bd, bn_up: Pair, bn_resize: Pair, wr, br):
+    """The same function in plain PyTorch (one product + depth-to-space,
+    then the resize product), with the kernel's bf16 rounding points."""
+    dt = parent.dtype
+    zero = torch.zeros((), dtype=dt, device=parent.device)
+    pm = torch.where(parent_keep[..., None], parent, zero)
+    d = deconv2_dense(pm, wd, bd).float()
+    d = F.leaky_relu(bn_up[0] * d + bn_up[1], 0.01).to(dt)
+    coords = (cell_coords(box, scale).float() / scale).to(dt)
+    xc = torch.cat([d, coords], dim=-1).float()
+    xc = (bn_resize[0] * xc + bn_resize[1]).to(dt).float()
+    r = (xc @ wr.to(dt).float() + br.float()).to(dt).float()
+    out = torch.where(child_mask[..., None], r, torch.zeros((), device=r.device))
+    out = out + skip.float()
+    return torch.where(union_mask[..., None], out,
+                       torch.zeros((), device=out.device)).to(dt)
+
+
+def up_preamble(
+    parent: torch.Tensor,        # [X2, Z2, Y2, Ci]
+    parent_keep: torch.Tensor,   # [X2, Z2, Y2] bool
+    child_mask: torch.Tensor,    # [X, Z, Y] bool generated children
+    union_mask: torch.Tensor,    # [X, Z, Y] bool  child | skip_mask
+    skip: torch.Tensor,          # [X, Z, Y, Co] encoder features
+    box: Box,
+    scale: int,
+    wd: torch.Tensor,            # [8, Ci, Co]
+    bd: torch.Tensor,            # [Co]
+    bn_up: Pair,                 # (a, c) [Co] f32
+    bn_resize: Pair,             # (a, c) [Co + 3] f32
+    wr: torch.Tensor,            # [Co + 3, Co]
+    br: torch.Tensor,            # [Co]
+    tiles: Optional[Tiles] = None,   # from up_tiles(union_mask)
+) -> torch.Tensor:
+    if not parent.is_cuda:
+        return up_preamble_plain(parent, parent_keep, child_mask, union_mask,
+                                 skip, box, scale, wd, bd, bn_up, bn_resize,
+                                 wr, br)
+    X2, Z2, Y2, ci = parent.shape
+    co = wd.shape[-1]
+    dev = parent.device
+    X, Z, Y = 2 * X2, 2 * Z2, 2 * Y2
+    kernels.require(parent, "parent", torch.bfloat16)
+    kernels.require(parent_keep, "parent_keep", torch.bool, (X2, Z2, Y2), dev)
+    kernels.require(child_mask, "child_mask", torch.bool, (X, Z, Y), dev)
+    kernels.require(union_mask, "union_mask", torch.bool, (X, Z, Y), dev)
+    kernels.require(skip, "skip", torch.bfloat16, (X, Z, Y, co), dev)
+    if tuple(wd.shape) != (8, ci, co) or tuple(wr.shape) != (co + 3, co):
+        raise ValueError(f"up_preamble: wd {tuple(wd.shape)}, wr {tuple(wr.shape)}")
+    if ci % 16 or co % 16:
+        raise ValueError(f"up_preamble needs Ci, Co % 16 == 0, got {ci}, {co}")
+    f32 = dict(device=dev, dtype=torch.float32)
+    wd16 = wd.to(device=dev, dtype=torch.bfloat16).contiguous()
+    # resize weight padded with zero rows to a 16-multiple K (Co + 16)
+    wr16 = torch.zeros((co + 16, co), dtype=torch.bfloat16, device=dev)
+    wr16[: co + 3] = wr.to(device=dev, dtype=torch.bfloat16)
+    bd32, a1, c1, a2, c2, br32 = (
+        v.to(**f32).contiguous()
+        for v in (bd, *bn_up, *bn_resize, br)
+    )
+    box_min = box.minimum.to(device=dev, dtype=torch.int32).contiguous()
+    if tiles is None:
+        tiles = up_tiles(union_mask)
+    out = torch.zeros((X, Z, Y, co), dtype=torch.bfloat16, device=dev)
+    err = kernels.lib().pasco_up_preamble(
+        parent.data_ptr(), parent_keep.data_ptr(), child_mask.data_ptr(),
+        union_mask.data_ptr(), skip.data_ptr(), wd16.data_ptr(),
+        bd32.data_ptr(), a1.data_ptr(), c1.data_ptr(), a2.data_ptr(),
+        c2.data_ptr(), wr16.data_ptr(), br32.data_ptr(), box_min.data_ptr(),
+        out.data_ptr(), tiles.ids.data_ptr(), tiles.n_active.data_ptr(),
+        X2, Z2, Y2, ci, co, scale, tiles.n_tiles, kernels.stream_ptr(parent),
+    )
+    kernels.check(err, "up_preamble")
+    kernels.LAUNCHES["up_preamble"] += 1
+    return out

@@ -1,0 +1,171 @@
+"""The CUDA kernels against their plain versions on the card, at small and
+ragged shapes (tile edges in x, z and y, both conv tile geometries) and
+every channel width of the flagship path, and the whole forward with the
+kernels against the plain forward on the CPU.
+
+Marked ``cuda``; each test skips without a CUDA device.  This file imports
+no JAX, so it runs where JAX is absent:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+Tolerance for the conv-like kernels: bf16 in and out, so
+``2e-2 * max|ref| + 2e-2`` at mask-valid cells (output rounding and another
+summation order) and exact zeros elsewhere; extraction is bit-exact.
+"""
+
+import pytest
+import torch
+
+from pasco_torch import kernels
+from pasco_torch.core.sparse import Box
+from pasco_torch.ops import conv, deconv, down, extract
+from pasco_torch.ops.dense_ops import maxpool2_mask, upsample2_mask
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _gen():
+    return torch.Generator().manual_seed(0)
+
+
+def _randn(g, dev, *shape, scale=1.0):
+    return (torch.randn(shape, generator=g) * scale).to(dev, torch.bfloat16)
+
+
+def _mask(g, dev, shape, p):
+    return (torch.rand(shape, generator=g) < p).to(dev)
+
+
+def _check(got, ref, mask):
+    g, r = got.float(), ref.float()
+    err = (g - r)[mask].abs().max().item()
+    assert err <= 2e-2 * r[mask].abs().max().item() + 2e-2, err
+    assert not (g[~mask] != 0).any()
+
+
+@pytest.mark.parametrize("shape", [(5, 12, 37), (6, 4, 20), (3, 32, 16)])
+@pytest.mark.parametrize("ci,co", [(64, 64), (32, 128), (256, 256)])
+def test_masked_conv3_matches_plain(dev, shape, ci, co):
+    g = _gen()
+    m = _mask(g, dev, shape, 0.4)
+    x = _randn(g, dev, *shape, ci)
+    w = _randn(g, dev, 27, ci, co, scale=(27 * ci) ** -0.5)
+    skip = _randn(g, dev, *shape, co)
+    aff = (torch.rand(ci, generator=g).to(dev) + 0.5, torch.randn(ci, generator=g).to(dev) * 0.1)
+    b = torch.randn(co, generator=g).to(dev) * 0.1
+    before = kernels.LAUNCHES["masked_conv3"]
+    for kw in (dict(bias=b, affine=aff, relu_in=True, skip=skip, relu_out=True), {}):
+        _check(conv.masked_conv3(x, m, w, **kw), conv.masked_conv3_plain(x, m, w, **kw), m)
+    assert kernels.LAUNCHES["masked_conv3"] == before + 2
+
+
+@pytest.mark.parametrize("ci,co", [(64, 128), (128, 256), (256, 256)])
+def test_down2_fused_matches_plain(dev, ci, co):
+    g = _gen()
+    m = _mask(g, dev, (6, 10, 18), 0.3)
+    m2 = maxpool2_mask(m)
+    x = _randn(g, dev, 6, 10, 18, ci)
+    w = _randn(g, dev, 8, ci, co, scale=(8 * ci) ** -0.5)
+    vec = lambda lo: (torch.rand(co, generator=g) + lo).to(dev)  # noqa: E731
+    args = (x, m, m2, w, vec(-0.5), (vec(0.5), vec(-0.5)), (vec(0.5), vec(-0.5)))
+    _check(down.down2_fused(*args), down.down2_fused_plain(*args), m2)
+
+
+@pytest.mark.parametrize("ci,co", [(128, 64), (256, 128), (256, 256)])
+def test_up_preamble_matches_plain(dev, ci, co):
+    g = _gen()
+    X2, Z2, Y2 = 3, 2, 11
+    pkeep = _mask(g, dev, (X2, Z2, Y2), 0.6)
+    child = upsample2_mask(pkeep) & _mask(g, dev, (2 * X2, 2 * Z2, 2 * Y2), 0.8)
+    skip_mask = _mask(g, dev, (2 * X2, 2 * Z2, 2 * Y2), 0.3)
+    union = child | skip_mask
+    skip = torch.where(skip_mask[..., None], _randn(g, dev, 2 * X2, 2 * Z2, 2 * Y2, co),
+                       torch.zeros((), dtype=torch.bfloat16, device=dev))
+    box = Box.create(torch.tensor([-16, 8, -8], device=dev), (12, 44, 8))
+    vec = lambda n, lo: (torch.rand(n, generator=g) + lo).to(dev)  # noqa: E731
+    args = (_randn(g, dev, X2, Z2, Y2, ci), pkeep, child, union, skip, box, 2,
+            _randn(g, dev, 8, ci, co, scale=ci ** -0.5), vec(co, -0.5),
+            (vec(co, 0.5), vec(co, -0.5)), (vec(co + 3, 0.5), vec(co + 3, -0.5)),
+            _randn(g, dev, co + 3, co, scale=0.1), vec(co, -0.5))
+    _check(deconv.up_preamble(*args), deconv.up_preamble_plain(*args), union)
+
+
+@pytest.mark.parametrize("n_shape,cap,e", [((7, 9, 33), 500, 20), ((40, 8, 40), 9000, 0),
+                                           ((16, 16, 16), 100000, 64)])
+def test_stream_extract_bit_exact(dev, n_shape, cap, e):
+    g = _gen()
+    keep = _mask(g, dev, n_shape, 0.5)
+    pay = _randn(g, dev, *n_shape, e) if e else None
+    got = extract.stream_extract(keep, cap, pay)
+    ref = extract.stream_extract_plain(keep, cap, pay)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_wrappers_raise_on_wrong_input(dev):
+    x = torch.zeros((4, 4, 4, 64), device=dev)           # f32, not bf16
+    m = torch.ones((4, 4, 4), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        conv.masked_conv3(x, m, torch.zeros((27, 64, 64), device=dev))
+    with pytest.raises(ValueError):
+        extract.stream_extract(m, 10, x)
+
+
+def test_forward_matches_cpu_plain(dev):
+    """The whole forward with the CUDA kernels against the same model's
+    plain versions on the CPU, both bf16, at full widths over a small box
+    (``flagship_narrow_config``).  Bounds as the reference's pallas-on/off
+    equivalence test (``tests/test_pipeline_equivalence.py``): extraction
+    sets nearly identical (Jaccard >= 0.99: the caps bind, so a near-tie
+    flipped by bf16 rounding shifts the tail), logits within
+    ``0.02 * scale + 0.125``."""
+    import numpy as np
+
+    from pasco_tpu.core.config import flagship_narrow_config
+    from pasco_torch.models.unet import ModelInput, build_net
+
+    cfg = flagship_narrow_config(n_infers=1)
+    r = np.random.RandomState(0)
+    P, S = cfg.capacity.num_points, 1
+    coords = np.zeros((P, 4), np.int32)
+    coords[:, 1:] = np.stack([r.randint(0, e, P) for e in cfg.scene.scene_size], 1)
+    gmax = np.array(cfg.scene.scene_size, np.int32) - 1
+    inp = ModelInput(
+        torch.from_numpy(r.randn(P, cfg.model.in_channels).astype(np.float32)),
+        torch.from_numpy(coords), torch.arange(P) < 3000,
+        torch.zeros(3, dtype=torch.int32), torch.from_numpy(gmax),
+        torch.zeros((S, 3), dtype=torch.int32), torch.from_numpy(gmax[None]))
+    net = build_net(cfg)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = net(inp)
+        net_gpu = net.to(dev)
+        got = net_gpu(ModelInput(*(t.to(dev) for t in inp)))
+
+    def cells(out, scale):
+        g = out.sem_grids[scale]
+        m = g.mask.cpu().numpy()
+        c = g.coords.cpu().numpy()
+        lg = out.sem_logits[scale][:, 0].float().cpu().numpy()
+        return {tuple(c[i]): lg[i] for i in np.nonzero(m)[0]}
+
+    for scale in (1, 2, 4):
+        a, b = cells(ref, scale), cells(got, scale)
+        assert len(set(a) & set(b)) >= 0.99 * len(set(a) | set(b)), scale
+    a, b = cells(ref, 1), cells(got, 1)
+    mag = max(max(np.abs(v).max() for v in a.values()), 1.0)
+    worst = max(np.abs(a[k] - b[k]).max() for k in set(a) & set(b))
+    assert worst <= 0.02 * mag + 0.125, worst
+    q_ref = ref.predictor.query_logits.float().numpy()
+    q_got = got.predictor.query_logits.float().cpu().numpy()
+    qmag = max(np.abs(q_ref).max(), 1.0)
+    assert np.abs(q_ref - q_got).max() <= 0.02 * qmag + 0.125

@@ -1,0 +1,388 @@
+"""The port's kernel modules (their plain versions, on the CPU) against the
+JAX reference: the XLA compositions in f32, and the Pallas entries in
+interpret mode for one small shape each.
+
+Tolerances: f32 comparisons hold at ``1e-4 * max|ref| + 1e-5`` at valid
+cells (same math, another summation order); extraction is exact.  The
+Pallas up-preamble rounds to bf16 inside the kernel whatever its inputs,
+so that one comparison holds at the bf16 bound ``2e-2 * max|ref| + 2e-2``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from pasco_tpu.core.sparse import Box as JBox
+from pasco_tpu.ops import dense_ops as jd
+from pasco_torch.core.sparse import Box
+from pasco_torch.ops import dense_ops as td
+from pasco_torch.ops.conv import masked_conv3
+from pasco_torch.ops.deconv import up_preamble
+from pasco_torch.ops.down import down2_fused
+from pasco_torch.ops.extract import stream_extract
+
+torch.set_num_threads(1)
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def close_f32(got, ref, valid):
+    """f32 bound at valid cells; ``got`` must be exact zero elsewhere."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    bound = 1e-4 * np.abs(ref[valid]).max() + 1e-5
+    err = np.abs(got[valid] - ref[valid]).max()
+    assert err <= bound, (err, bound)
+    assert np.all(got[~valid] == 0)
+
+
+def rand_affine(r, n):
+    return ((r.rand(n) + 0.5).astype(np.float32), (r.randn(n) * 0.1).astype(np.float32))
+
+
+# --------------------------------------------------------------------------
+# plain twins of dense_ops
+# --------------------------------------------------------------------------
+
+
+def test_mask_and_coord_twins_match_jax():
+    r = np.random.RandomState(0)
+    mask = r.rand(8, 6, 10) < 0.3
+    np.testing.assert_array_equal(
+        td.maxpool2_mask(T(mask)).numpy(), np.asarray(jd.maxpool2_mask(mask)))
+    np.testing.assert_array_equal(
+        td.upsample2_mask(T(mask)).numpy(), np.asarray(jd.upsample2_mask(mask)))
+    gmin = np.array([-8, 16, -4], np.int32)
+    for stride in (1, 2, 4):
+        box_t = Box.create(T(gmin), (32, 24, 16))
+        box_j = JBox.create(gmin, (32, 24, 16))
+        bmin, bmax = np.array([-2, 20, 0], np.int32), np.array([9, 31, 5], np.int32)
+        np.testing.assert_array_equal(
+            td.bbox_mask(box_t, stride, T(bmin), T(bmax)).numpy(),
+            np.asarray(jd.bbox_mask(box_j, stride, bmin, bmax, "xzy")))
+        np.testing.assert_array_equal(
+            td.cell_coords(box_t, stride).numpy(),
+            np.asarray(jd.cell_coords(box_j, stride, "xzy")))
+
+
+def test_conv_down_deconv_twins_match_jax():
+    r = np.random.RandomState(1)
+    x = r.randn(4, 6, 8, 5).astype(np.float32)
+    w27 = r.randn(27, 5, 3).astype(np.float32)
+    w8 = r.randn(8, 5, 3).astype(np.float32)
+    b = r.randn(3).astype(np.float32)
+    ones = np.ones(x.shape[:3], bool)
+    close_f32(td.conv3_dense(T(x), T(w27), T(b)).numpy(),
+              jd.conv3_dense(x, w27, b, axis_order="xzy"), ones)
+    close_f32(td.down2_dense(T(x), T(w8), T(b)).numpy(),
+              jd.down2_dense(x, w8, b, axis_order="xzy"), ones[::2, ::2, ::2])
+    close_f32(td.deconv2_dense(T(x), T(w8), T(b)).numpy(),
+              jd.deconv2_dense(x, w8, b, axis_order="xzy"),
+              np.ones((8, 12, 16), bool))
+
+
+def test_scatter_max_rows_matches_jax():
+    r = np.random.RandomState(2)
+    f = r.randn(300, 4).astype(np.float32)
+    idx = r.randint(0, 41, 300).astype(np.int32)   # 40 == dump row
+    got = td.scatter_max_rows(T(f), T(idx), 40, -1e30).numpy()
+    ref = np.asarray(jd.scatter_max_rows(f, idx, 40, np.float32(-1e30)))
+    np.testing.assert_array_equal(got[:40], ref[:40])
+
+
+# --------------------------------------------------------------------------
+# kernel 1: masked_conv3
+# --------------------------------------------------------------------------
+
+CONV_FORMS = {
+    "res_conv2": dict(bias=True, affine=True, relu_in=True, skip=True, relu_out=True),
+    "res_conv1": dict(bias=True, affine=True, relu_in=True, skip=False, relu_out=False),
+    "refiner_conv1": dict(bias=False, affine=False, relu_in=False, skip=False, relu_out=False),
+}
+
+
+@pytest.mark.parametrize("form", sorted(CONV_FORMS))
+def test_masked_conv3_matches_xla(form):
+    opt = CONV_FORMS[form]
+    r = np.random.RandomState(3)
+    X, Z, Y, ci, co = 6, 8, 10, 4, 5
+    x = r.randn(X, Z, Y, ci).astype(np.float32)
+    mask = r.rand(X, Z, Y) < 0.5
+    w = (r.randn(27, ci, co) * 0.2).astype(np.float32)
+    b = r.randn(co).astype(np.float32) if opt["bias"] else None
+    a, c = rand_affine(r, ci)
+    skip = r.randn(X, Z, Y, co).astype(np.float32) if opt["skip"] else None
+
+    y = x * a + c if opt["affine"] else x
+    y = np.maximum(y, 0) if opt["relu_in"] else y
+    y = np.where(mask[..., None], y, 0)
+    ref = jd.conv3_dense(jnp.asarray(y), w, b, axis_order="xzy")
+    if skip is not None:
+        ref = ref + skip
+    if opt["relu_out"]:
+        ref = jnp.maximum(ref, 0)
+
+    got = masked_conv3(
+        T(x), T(mask), T(w), None if b is None else T(b),
+        affine=(T(a), T(c)) if opt["affine"] else None, relu_in=opt["relu_in"],
+        skip=None if skip is None else T(skip), relu_out=opt["relu_out"])
+    close_f32(got.numpy(), ref, np.broadcast_to(mask[..., None], got.shape))
+
+
+def test_masked_conv3_matches_pallas_interpret():
+    """A residual block (two chained convs) against fused_packed_conv."""
+    from pasco_tpu.ops.pallas_conv import (
+        active_tiles_xy, fused_packed_conv, pad_stage, stage_mask8)
+
+    r = np.random.RandomState(5)
+    X, Z, Y, C = 16, 8, 32, 4
+    x = r.randn(X, Z, Y, C).astype(np.float32)
+    mask = r.rand(X, Z, Y) > 0.5
+    mask[8:] = False
+    w1, w2 = ((r.randn(27, C, C) * 0.3).astype(np.float32) for _ in range(2))
+    b1, b2 = (r.randn(C).astype(np.float32) for _ in range(2))
+    (a1, c1), (a2, c2) = rand_affine(r, C), rand_affine(r, C)
+    xp = jd.pack_z2(jnp.asarray(x))
+    with pltpu.force_tpu_interpret_mode():
+        m8 = stage_mask8(jnp.asarray(mask), 2 * C)
+        ids, n = active_tiles_xy(jnp.asarray(mask).any(axis=1), 8, 16)
+        xpad = pad_stage(xp)
+        tile2 = lambda v: jnp.asarray(np.concatenate([v, v]))   # noqa: E731
+        o1 = fused_packed_conv(xpad, w1, m8, ids, n, affine=(tile2(a1), tile2(c1)),
+                               relu=True, bias=b1, out_padded=True)
+        o2 = fused_packed_conv(o1, w2, m8, ids, n, affine=(tile2(a2), tile2(c2)),
+                               relu=True, bias=b2, skip=xpad, out_padded=False)
+    ref = np.asarray(jd.unpack_z2(o2[:, :, :Y]))
+
+    xt, mt = T(x), T(mask)
+    f = masked_conv3(xt, mt, T(w1), T(b1), affine=(T(a1), T(c1)), relu_in=True)
+    got = masked_conv3(f, mt, T(w2), T(b2), affine=(T(a2), T(c2)), relu_in=True,
+                       skip=xt, relu_out=True)
+    close_f32(got.numpy(), np.where(mask[..., None], ref, 0),
+              np.broadcast_to(mask[..., None], got.shape))
+
+
+# --------------------------------------------------------------------------
+# kernel 2: down2_fused
+# --------------------------------------------------------------------------
+
+
+def _down_inputs(r, X, Z, Y, ci, co):
+    x = r.randn(X, Z, Y, ci).astype(np.float32)
+    mask = r.rand(X, Z, Y) < 0.4
+    x = np.where(mask[..., None], x, 0).astype(np.float32)   # producer-masked
+    wd = (r.randn(8, ci, co) * 0.3).astype(np.float32)
+    bd = (r.randn(co) * 0.1).astype(np.float32)
+    return x, mask, wd, bd
+
+
+def test_down2_fused_matches_xla():
+    """Against the flax ``DenseDown`` module's XLA form at inference."""
+    from pasco_tpu.models.dense_unet import DenseDown
+
+    r = np.random.RandomState(6)
+    X, Z, Y, ci, co = 8, 6, 10, 4, 6
+    x, mask, wd, bd = _down_inputs(r, X, Z, Y, ci, co)
+    bn = {k: dict(scale=(r.rand(co) + 0.5).astype(np.float32),
+                  bias=(r.randn(co) * 0.1).astype(np.float32)) for k in ("bn1", "bn2")}
+    stats = {k: dict(mean=(r.randn(co) * 0.1).astype(np.float32),
+                     var=(r.rand(co) + 0.5).astype(np.float32)) for k in ("bn1", "bn2")}
+    variables = {"params": dict(kernel=wd, bias=bd, **bn), "batch_stats": stats}
+    ref, new_mask = DenseDown(co).apply(variables, jnp.asarray(x), jnp.asarray(mask), False)
+
+    def affine(k):
+        inv = bn[k]["scale"] / np.sqrt(stats[k]["var"] + 1e-5)
+        return T(inv), T(bn[k]["bias"] - stats[k]["mean"] * inv)
+
+    m2 = td.maxpool2_mask(T(mask))
+    np.testing.assert_array_equal(m2.numpy(), np.asarray(new_mask))
+    got = down2_fused(T(x), T(mask), m2, T(wd), T(bd), affine("bn1"), affine("bn2"))
+    close_f32(got.numpy(), ref, np.broadcast_to(m2.numpy()[..., None], got.shape))
+
+
+def test_down2_fused_matches_pallas_interpret():
+    from pasco_tpu.ops.pallas_conv import pad_stage, stage_mask8
+    from pasco_tpu.ops.pallas_down import down_padded_to_padded
+
+    r = np.random.RandomState(7)
+    X, Z, Y, ci, co = 32, 8, 64, 8, 16
+    x, mask, wd, bd = _down_inputs(r, X, Z, Y, ci, co)
+    (a1, c1), (a2, c2) = rand_affine(r, co), rand_affine(r, co)
+    new_mask = np.asarray(jd.maxpool2_mask(mask))
+    tile2 = lambda v: jnp.asarray(np.concatenate([v, v]))   # noqa: E731
+    with pltpu.force_tpu_interpret_mode():
+        out = down_padded_to_padded(
+            pad_stage(jd.pack_z2(jnp.asarray(x))), stage_mask8(jnp.asarray(mask), 2 * ci),
+            jnp.asarray(new_mask.any(axis=1)), wd, bd, (tile2(a1), tile2(c1)),
+            (tile2(a2), tile2(c2)), Y // 2, compute_dtype=jnp.float32)
+    ref = np.asarray(jd.unpack_z2(out[1 : 1 + X // 2, 1 : 1 + Z // 4, 16 : 16 + Y // 2]))
+    got = down2_fused(T(x), T(mask), T(new_mask), T(wd), T(bd), (T(a1), T(c1)),
+                      (T(a2), T(c2)))
+    valid = np.broadcast_to(new_mask[..., None], got.shape)
+    close_f32(got.numpy(), np.where(valid, ref, 0), valid)
+
+
+# --------------------------------------------------------------------------
+# kernel 3: up_preamble
+# --------------------------------------------------------------------------
+
+
+def _up_inputs(r, X2, Z2, Y2, ci, co):
+    return dict(
+        parent=r.randn(X2, Z2, Y2, ci).astype(np.float32),
+        parent_keep=r.rand(X2, Z2, Y2) < 0.6,
+        skip_mask=r.rand(2 * X2, 2 * Z2, 2 * Y2) < 0.3,
+        skip=r.randn(2 * X2, 2 * Z2, 2 * Y2, co).astype(np.float32),
+        wd=(r.randn(8, ci, co) * 0.3).astype(np.float32),
+        bd=(r.randn(co) * 0.1).astype(np.float32),
+        up=rand_affine(r, co), resize=rand_affine(r, co + 3),
+        wr=(r.randn(co + 3, co) * 0.3).astype(np.float32),
+        br=(r.randn(co) * 0.1).astype(np.float32),
+    )
+
+
+def _up_port(d, box, scale, child, union):
+    skip = np.where(d["skip_mask"][..., None], d["skip"], 0).astype(np.float32)
+    return up_preamble(
+        T(d["parent"]), T(d["parent_keep"]), T(child), T(union), T(skip), box,
+        scale, T(d["wd"]), T(d["bd"]), tuple(map(T, d["up"])),
+        tuple(map(T, d["resize"])), T(d["wr"]), T(d["br"]))
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_up_preamble_matches_xla(scale):
+    """Against the decoder preamble composed from the reference's XLA ops,
+    with a negative box corner (absolute coords)."""
+    r = np.random.RandomState(8)
+    X2, Z2, Y2, ci, co = 3, 2, 4, 5, 6
+    d = _up_inputs(r, X2, Z2, Y2, ci, co)
+    gmin = np.array([-16, -8, -24], np.int32)
+    extent = (2 * X2 * scale, 2 * Y2 * scale, 2 * Z2 * scale)
+    box_j = JBox.create(gmin, extent)
+    child = np.asarray(jd.upsample2_mask(d["parent_keep"])) & (r.rand(2 * X2, 2 * Z2, 2 * Y2) < 0.8)
+    union = child | d["skip_mask"]
+
+    xm = np.where(d["parent_keep"][..., None], d["parent"], 0)
+    x = jd.deconv2_dense(jnp.asarray(xm), d["wd"], d["bd"], axis_order="xzy")
+    x = x * d["up"][0] + d["up"][1]
+    x = jnp.where(x > 0, x, 0.01 * x)
+    coords = jd.cell_coords(box_j, scale, "xzy").astype(jnp.float32) / scale
+    xc = jnp.concatenate([x, coords], axis=-1) * d["resize"][0] + d["resize"][1]
+    res = jnp.dot(xc, d["wr"]) + d["br"]
+    skip = np.where(d["skip_mask"][..., None], d["skip"], 0)
+    ref = jnp.where(child[..., None], res, 0) + skip
+
+    got = _up_port(d, Box.create(T(gmin), extent), scale, child, union)
+    close_f32(got.numpy(), ref, np.broadcast_to(union[..., None], got.shape))
+
+
+def test_up_preamble_matches_pallas_interpret():
+    from pasco_tpu.ops.pallas_deconv import up_preamble_padded
+
+    r = np.random.RandomState(9)
+    X2, Z2, Y2, ci, co = 8, 2, 32, 4, 4
+    d = _up_inputs(r, X2, Z2, Y2, ci, co)
+    d["parent_keep"][:] = True    # the TPU kernel reads a pre-masked parent
+    X, Z, Y = 2 * X2, 2 * Z2, 2 * Y2
+    child = r.rand(X, Z, Y) < 0.7
+    union = child | d["skip_mask"]
+    gmin = np.array([-8, 4, 2], np.int32)
+    box = Box.create(T(gmin), (X, Y, Z))
+    skip = np.where(d["skip_mask"][..., None], d["skip"], 0).astype(np.float32)
+    # packed lanes: [co | co] for up_bn, [co, 3 coords | co, 3 coords] for resize_bn
+    tile2 = lambda v: jnp.asarray(np.concatenate([v, v]))   # noqa: E731
+    with pltpu.force_tpu_interpret_mode():
+        out = up_preamble_padded(
+            jd.pack_z2(jnp.asarray(d["parent"], jnp.bfloat16)),
+            jd.pack_z2(jnp.asarray(skip, jnp.bfloat16)),
+            jnp.asarray(union.any(axis=1)), jnp.asarray(gmin), 1, d["wd"], d["bd"],
+            (tile2(d["up"][0]), tile2(d["up"][1])),
+            (tile2(d["resize"][0]), tile2(d["resize"][1])),
+            d["wr"], d["br"], child_m8=_child_m8(child, co))
+    ref = np.asarray(jd.unpack_z2(out[1 : 1 + X, 1 : 1 + Z // 2, 16 : 16 + Y])
+                     .astype(jnp.float32))
+    d["parent"] = np.asarray(jnp.asarray(d["parent"], jnp.bfloat16).astype(jnp.float32))
+    d["skip"] = np.asarray(jnp.asarray(d["skip"], jnp.bfloat16).astype(jnp.float32))
+    got = _up_port(d, box, 1, child, union).numpy()
+    valid = np.broadcast_to(union[..., None], got.shape)
+    ref = np.where(valid, ref, 0)
+    err = np.abs(got - ref)[valid].max()
+    assert err <= 2e-2 * np.abs(ref[valid]).max() + 2e-2, err
+    assert np.all(got[~valid] == 0)
+
+
+def _child_m8(child, co):
+    """The padded int8 child mask of the TPU kernel for a logical
+    [X, Z, Y] child set: lanes [z even | z odd] per packed row."""
+    X, Z, Y = child.shape
+    ypad = Y + (-Y) % 16 + 32
+    m = np.zeros((X + 2, Z // 2 + 2, ypad, 2 * co), np.int8)
+    m[1 : 1 + X, 1 : 1 + Z // 2, 16 : 16 + Y, :co] = child[:, 0::2, :, None]
+    m[1 : 1 + X, 1 : 1 + Z // 2, 16 : 16 + Y, co:] = child[:, 1::2, :, None]
+    return jnp.asarray(m)
+
+
+# --------------------------------------------------------------------------
+# kernel 4: stream_extract
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cap,with_extra", [(4096, True), (4096, False), (300, True)])
+def test_stream_extract_matches_xla(cap, with_extra):
+    """Same rows in the same order as ``extract_sparse`` (also when the
+    capacity binds), same coords, same payload bits."""
+    r = np.random.RandomState(10)
+    X, Z, Y, C, E = 8, 6, 12, 5, 3
+    keep = r.rand(X, Z, Y) < 0.4
+    feats = r.randn(X, Z, Y, C).astype(np.float32)
+    extra = r.randn(X, Z, Y, E).astype(np.float32) if with_extra else None
+    gmin = np.array([-8, 16, -4], np.int32)
+    box_j = JBox.create(gmin, (X * 2, Y * 2, Z * 2))
+    box_t = Box.create(T(gmin), (X * 2, Y * 2, Z * 2))
+    grid, ex = jd.extract_sparse(feats, keep, box_j, 2, cap, extra=extra,
+                                 axis_order="xzy")
+    coords, valid_t, vals_t = td.extract_sparse(T(keep), box_t, 2, cap, T(feats))
+    np.testing.assert_array_equal(coords.numpy(), np.asarray(grid.coords))
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(grid.mask))
+    np.testing.assert_array_equal(vals_t.numpy(), np.asarray(grid.feats))
+    if with_extra:
+        _, _, e_t = td.extract_sparse(T(keep), box_t, 2, cap, T(extra))
+        np.testing.assert_array_equal(e_t.numpy(), np.asarray(ex))
+    else:
+        coords0, _, v0 = td.extract_sparse(T(keep), box_t, 2, cap)
+        np.testing.assert_array_equal(coords0.numpy(), np.asarray(grid.coords))
+        assert v0.shape == (cap, 0)
+    vals, src, valid, total = stream_extract(T(keep), cap, T(feats))
+    assert int(total) == int(keep.sum())
+    assert int(valid.sum()) == min(cap, int(keep.sum()))
+
+
+def test_stream_extract_matches_pallas_interpret():
+    """Same kept cells and payload as stream_extract_z2 (whose TPU row
+    order differs: compare cell-keyed)."""
+    from pasco_tpu.ops.pallas_extract import stream_extract_z2
+
+    r = np.random.RandomState(11)
+    X, Z, Y, E = 8, 8, 128, 10
+    keep = r.rand(X, Z, Y) < 0.3
+    payload = r.randn(X, Z, Y, E).astype(np.float32)
+    pay_bf = jnp.asarray(payload, jnp.bfloat16)
+    cap = 4096
+    with pltpu.force_tpu_interpret_mode():
+        v, s, m, tot = jax.jit(stream_extract_z2, static_argnums=1)(
+            jnp.asarray(keep), cap, jd.pack_z2(pay_bf))
+    v = np.asarray(v.astype(jnp.float32))
+    s, m = np.asarray(s), np.asarray(m)
+    ref = {int(s[i]): v[i] for i in np.nonzero(m)[0]}
+
+    vals, src, valid, total = stream_extract(
+        T(keep), cap, torch.from_numpy(payload).to(torch.bfloat16))
+    assert int(total) == int(tot) == int(keep.sum())
+    got = {int(src[i]): vals[i].float().numpy() for i in np.nonzero(valid.numpy())[0]}
+    assert set(got) == set(ref)
+    for k in got:
+        np.testing.assert_array_equal(got[k], ref[k])
