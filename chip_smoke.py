@@ -11,7 +11,9 @@
    same inputs: the conv-like kernels in bf16 at mask-valid cells within
    ``2e-2 * max|ref| + 2e-2`` (bf16 output rounding and another summation
    order) with exact zeros at invalid cells, the extraction bit-exact;
-   each with its median time and the plain version's (CUDA events);
+   each with its median time and the plain version's (CUDA events).  The
+   up-preamble runs a second case whose bound comes from the deconv path,
+   and shows that a plain run with a broken deconv would fail it;
 4. drives the flagship forward (``PaSCoConfig()``, n_infers=1, full
    widths, seeded random init) on 3 synthetic scans after one warm-up,
    checks finite outputs of the expected shapes, kept voxels at every
@@ -41,22 +43,17 @@ N_SCANS = 3
 
 
 def time_ms(fn, reps=5):
-    """Median milliseconds of ``fn()`` (CUDA events on a GPU)."""
+    """Median milliseconds of ``fn()`` from CUDA events."""
     fn()
     samples = []
     for _ in range(reps):
-        if torch.cuda.is_available():
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            samples.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            samples.append(1e3 * (time.perf_counter() - t0))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b))
     return statistics.median(samples)
 
 
@@ -103,15 +100,17 @@ def scan_masks(cfg, inp):
 
 
 def _compare(name, got, ref, mask):
-    """Conv-like check at valid cells; exact zeros at invalid cells."""
+    """Conv-like check at valid cells; exact zeros at invalid cells.
+    Returns (max|d|, bound)."""
     g, r = got.float(), ref.float()
     err = (g - r)[mask].abs().max().item() if mask.any() else 0.0
     bound = TOL_REL * r[mask].abs().max().item() + TOL_ABS
+    print(f"check {name}: max|d| {err:.4g}, bound {bound:.4g}", flush=True)
     if not err <= bound:
         raise AssertionError(f"{name}: max|d| {err} > {bound}")
     if (g[~mask] != 0).any():
         raise AssertionError(f"{name}: non-zero output at invalid cells")
-    return err
+    return err, bound
 
 
 def kernel_phases(cfg, inp, gen):
@@ -155,7 +154,7 @@ def kernel_phases(cfg, inp, gen):
         tiles = conv.conv_tiles(m)
         got = conv.masked_conv3(x, m, w, tiles=tiles, **kw)
         ref = conv.masked_conv3_plain(x, m, w, **kw)
-        errs.append(_compare(f"masked_conv3 {label}", got, ref, m))
+        errs.append(_compare(f"masked_conv3 {label}", got, ref, m)[0])
         if times is None:
             times = (
                 time_ms(lambda: conv.masked_conv3(x, m, w, tiles=tiles, **kw)),
@@ -173,29 +172,62 @@ def kernel_phases(cfg, inp, gen):
     args = (xd, occ1, m2, wd, vec(2 * f), (vec(2 * f, 0.5, 1.5), vec(2 * f)),
             (vec(2 * f, 0.5, 1.5), vec(2 * f)))
     tiles = down.down_tiles(m2)
-    err = _compare("down2_fused", down.down2_fused(*args, tiles=tiles),
-                   down.down2_fused_plain(*args), m2)
+    err, _ = _compare("down2_fused", down.down2_fused(*args, tiles=tiles),
+                      down.down2_fused_plain(*args), m2)
     rows.append(dict(
         name="down2_fused", source="pasco_torch/csrc/down2_fused.cu",
         replaces="pasco_tpu/ops/pallas_down.py:244", max_abs_err=err,
         ms=time_ms(lambda: down.down2_fused(*args, tiles=tiles)),
         plain_ms=time_ms(lambda: down.down2_fused_plain(*args))))
 
-    # --- kernel 3: up_preamble at dec_s1 ----------------------------------
+    # --- kernel 3: up_preamble at dec_s1, two cases ------------------------
+    # "coords + skip": the absolute-coordinate channels (cells up to ~300
+    # from the origin) dominate |r|, so this bound checks the coordinate
+    # and union paths but is too coarse for the deconv branch.
+    # "deconv": wr's coordinate rows are zero and the deconv has unit
+    # variance, so the bound comes from the deconv/BN path; a plain run with
+    # the child-offset weights rolled, or with the parent product dropped,
+    # must break that bound, else the check is void.
     pkeep = maxpool2_mask(bbox1)
     parent = randn(X // 2, Z // 2, Y // 2, 2 * f)
     child = upsample2_mask(pkeep) & bbox1
     union = child | occ1
-    args = (parent, pkeep, child, union, masked(randn(X, Z, Y, f), occ1), box,
-            1, randn(8, 2 * f, f, scale=(16 * f) ** -0.5), vec(f),
-            (vec(f, 0.5, 1.5), vec(f)), (vec(f + 3, 0.5, 1.5), vec(f + 3)),
-            randn(f + 3, f, scale=0.1), vec(f))
+    skip = masked(randn(X, Z, Y, f), occ1)
+    skip_d = skip * 0.1
+    bd, br = vec(f), vec(f)
+    bn = ((vec(f, 0.5, 1.5), vec(f)), (vec(f + 3, 0.5, 1.5), vec(f + 3)))
+    wr_d = randn(f + 3, f, scale=f ** -0.5)
+    wr_d[f:] = 0
+
+    def up_args(skip_, wd_, wr_):
+        return (parent, pkeep, child, union, skip_, box, 1, wd_, bd, *bn, wr_, br)
+
+    wd_d = randn(8, 2 * f, f, scale=(2 * f) ** -0.5)
+    up_cases = [
+        ("coords + skip", up_args(skip, randn(8, 2 * f, f, scale=(16 * f) ** -0.5),
+                                  randn(f + 3, f, scale=0.1))),
+        ("deconv", up_args(skip_d, wd_d, wr_d)),
+    ]
     tiles = deconv.up_tiles(union)
-    err = _compare("up_preamble", deconv.up_preamble(*args, tiles=tiles),
-                   deconv.up_preamble_plain(*args), union)
+    errs = []
+    for label, args in up_cases:
+        ref = deconv.up_preamble_plain(*args)
+        err, bound = _compare(f"up_preamble {label}",
+                              deconv.up_preamble(*args, tiles=tiles), ref, union)
+        errs.append(err)
+    for label, wd_bad in (("child offsets rolled", wd_d.roll(1, 0)),
+                          ("parent product dropped", torch.zeros_like(wd_d))):
+        bad = deconv.up_preamble_plain(*up_args(skip_d, wd_bad, wr_d))
+        miss = (bad.float() - ref.float())[union].abs().max().item()
+        print(f"check up_preamble deconv resolution, {label}: max|d| "
+              f"{miss:.4g} > bound {bound:.4g}", flush=True)
+        if not miss > bound:
+            raise AssertionError(f"up_preamble check cannot see a wrong deconv "
+                                 f"({label}: {miss} <= {bound})")
+    args = up_cases[0][1]
     rows.append(dict(
         name="up_preamble", source="pasco_torch/csrc/up_preamble.cu",
-        replaces="pasco_tpu/ops/pallas_deconv.py:306", max_abs_err=err,
+        replaces="pasco_tpu/ops/pallas_deconv.py:306", max_abs_err=max(errs),
         ms=time_ms(lambda: deconv.up_preamble(*args, tiles=tiles)),
         plain_ms=time_ms(lambda: deconv.up_preamble_plain(*args))))
 
@@ -255,30 +287,25 @@ def forward_phase(cfg, scans, net):
     """Warm-up + timed forwards; returns launches of the timed run."""
     from pasco_torch import kernels
 
-    dev = scans[0][1].point_feats.device
     with torch.no_grad():
         check_output(cfg, net(scans[0][1]))          # warm-up
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        torch.cuda.synchronize()
         kernels.reset_launches()
         dev_ms = []
         t0 = time.perf_counter()
         for _, inp in scans:
-            if dev.type == "cuda":
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                out = net(inp)
-                b.record()
-                b.synchronize()
-                dev_ms.append(a.elapsed_time(b))
-            else:
-                out = net(inp)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = net(inp)
+            b.record()
+            b.synchronize()
+            dev_ms.append(a.elapsed_time(b))
             kept = check_output(cfg, out)
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
     print(f"forward: {len(scans) / wall:.4f} scans/s, device "
-          f"{statistics.mean(dev_ms) if dev_ms else float('nan'):.2f} ms/scan, "
+          f"{statistics.mean(dev_ms):.2f} ms/scan, "
           f"kept {kept}, launches {launches}", flush=True)
     # Per forward the path runs at least 42 res-block/refiner convs, the
     # enc_s2/s4 downs, the dec_s2/s1 preambles and 4 stream extractions.

@@ -48,7 +48,7 @@ def stream_extract_plain(keep, capacity, payload=None):
 def stream_extract(
     keep: torch.Tensor,                       # [X, Z, Y] bool
     capacity: int,
-    payload: Optional[torch.Tensor] = None,   # [X, Z, Y, E] 2-byte dtype
+    payload: Optional[torch.Tensor] = None,   # [X, Z, Y, E] bf16
 ):
     if not keep.is_cuda:
         return stream_extract_plain(keep, capacity, payload)
@@ -56,17 +56,13 @@ def stream_extract(
     kernels.require(keep, "keep", torch.bool)
     n = keep.numel()
     e = 0
-    dtype = torch.bfloat16
     if payload is not None:
         e = payload.shape[-1]
-        if payload.dtype not in (torch.bfloat16, torch.float16):
-            raise ValueError(f"stream_extract payload must be 2-byte, got {payload.dtype}")
-        kernels.require(payload, "payload", payload.dtype, (*keep.shape, e), dev)
-        dtype = payload.dtype
+        kernels.require(payload, "payload", torch.bfloat16, (*keep.shape, e), dev)
     nb = -(-n // CELLS)
     counts = torch.empty((nb,), dtype=torch.int32, device=dev)
     offsets = torch.empty((nb,), dtype=torch.int32, device=dev)
-    vals = torch.zeros((capacity, e), dtype=dtype, device=dev)
+    vals = torch.zeros((capacity, e), dtype=torch.bfloat16, device=dev)
     src = torch.zeros((capacity,), dtype=torch.int32, device=dev)
     valid = torch.zeros((capacity,), dtype=torch.bool, device=dev)
     total = torch.zeros((1,), dtype=torch.int32, device=dev)
