@@ -19,7 +19,28 @@
    checks finite outputs of the expected shapes, kept voxels at every
    scale and that every kernel was launched, and prints scans/s and
    device ms/scan;
-5. runs ``run_scene_inference`` on one scan.
+5. runs ``run_scene_inference`` on one scan;
+6. training, kernel phase: the differentiable conv of every residual
+   block (``MaskedConv3Fn``: forward and data gradient on the conv kernel)
+   at the train box (256, 256, 32), f=64, on the scan's s1 occupancy and a
+   near-dense decoder mask: forward, dx, dw and db against autograd of the
+   plain version on the same inputs, within the bound above at valid
+   cells, with exact zeros of the output and of dx elsewhere; kernel
+   against plain time for the forward and for dx;
+7. training, narrow whole step: one train step at
+   ``flagship_narrow_config(n_infers=1)`` (full widths, small box; caps
+   that do not bind, no point dropout) with the kernels on the card and
+   with the plain versions on the CPU, from the same weights and inputs:
+   loss terms and per-parameter gradients within the bounds stated at
+   :func:`narrow_step_check`;
+8. training, flagship: ``PaSCoConfig()`` on the train box with seeded
+   random init, one warm-up and 3 timed steps through
+   ``pasco_torch.training.loop.train`` on synthetic scenes with targets;
+   prints s/step, device ms/step, peak device memory, ``total_loss`` and
+   ``grad_norm`` per step and the launches per step, and requires finite
+   losses, ``grad_norm > 0``, running statistics that moved, and at
+   least the residual-block conv count of ``masked_conv3`` and
+   ``conv3_dx`` launches per step.
 
 Prints a JSON line with the kernels' numbers, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
@@ -28,8 +49,11 @@ result line); so does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -40,6 +64,16 @@ import torch
 
 TOL_REL, TOL_ABS = 2e-2, 2e-2
 N_SCANS = 3
+N_TRAIN_STEPS = 3
+# residual-block 3^3 convs per forward: 4 encoder + 3 decoder stages x
+# 3 blocks x 2 convs
+RES_CONVS = 42
+# Parameters whose gradient is zero in exact arithmetic: a bias feeding a
+# training-mode BN (the batch mean removes it) and the attention key
+# biases (softmax is shift invariant); both runs return rounding noise.
+STRUCTURALLY_ZERO = re.compile(
+    r"(res\d+\.conv1\.bias|down\.bias|up_bias|point_mlp\.(fc[123]|bn_in)\.bias"
+    r"|k_proj\.bias)$")
 
 
 def time_ms(fn, reps=5):
@@ -311,10 +345,213 @@ def forward_phase(cfg, scans, net):
     # enc_s2/s4 downs, the dec_s2/s1 preambles and 4 stream extractions.
     floor = {"masked_conv3": 42, "down2_fused": 2, "up_preamble": 2,
              "stream_extract": 4}
-    short = {k: v for k, v in launches.items() if v < floor[k] * len(scans)}
+    short = {k: launches[k] for k in floor if launches[k] < floor[k] * len(scans)}
     if short:
         raise AssertionError(f"kernels of the main path launched too rarely: {short}")
     return launches
+
+
+def train_scenes(cfg, n, seed=0):
+    """Synthetic training scenes with targets, collated at the train box."""
+    from pasco_tpu.data.semantic_kitti.collate import collate
+    from pasco_tpu.data.semantic_kitti.dataset import process_scene
+    from pasco_tpu.data.synthetic import make_scene
+    from pasco_torch.training.loop import train_config
+
+    tcfg = train_config(cfg)
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        scene = make_scene(
+            rng, scene_size=cfg.scene.scene_size,
+            n_points=min(cfg.capacity.num_points, 120000),
+            point_feat_dim=cfg.model.in_channels - 6,
+        )
+        out.append(collate([process_scene(scene, None, rng)], tcfg, rng=rng))
+    return out
+
+
+def train_conv_phase(cfg, col, gen, dev):
+    """Row 6 of the kernel table at train shapes: ``MaskedConv3Fn`` (kernel
+    forward and dx, plain dw and db) against autograd of the plain version
+    on the same inputs.  Returns the JSON row of ``conv3_dx``."""
+    from pasco_torch.models.unet import scene_to_model_input
+    from pasco_torch.ops import conv
+    from pasco_torch.training.loop import train_config
+
+    tcfg = train_config(cfg)
+    _, occ1, bbox1 = scan_masks(tcfg, scene_to_model_input(col, dev))
+    X, Z, Y = occ1.shape
+    f = cfg.model.f
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device=dev, dtype=bf)
+
+    x = randn(X, Z, Y, f)
+    w = randn(27, f, f, scale=(27 * f) ** -0.5).float()
+    b = (torch.rand((f,), generator=gen) * 0.2 - 0.1).to(dev)
+    dy = randn(X, Z, Y, f)
+    dec = bbox1 & (torch.rand((X, Z, Y), generator=gen) < 0.9).to(dev)
+    errs, times = {}, {}
+    for label, m in (("s1 occupancy", occ1), ("decoder, near dense", dec)):
+        tiles = conv.conv_tiles(m)
+        grads = []
+        for fn in (lambda *a: conv.MaskedConv3Fn.apply(*a, tiles), conv.masked_conv3_plain):
+            xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+            y = fn(xs, m, ws, bs)
+            y.backward(dy)
+            grads.append((y.detach(), xs.grad, ws.grad, bs.grad))
+        (y, gx, gw, gb), (yr, gxr, gwr, gbr) = grads
+        every = torch.ones((), dtype=torch.bool, device=dev)
+        for name, got, ref, valid in (("forward", y, yr, m), ("dx", gx, gxr, m),
+                                      ("dw", gw, gwr, every.expand(27, f)),
+                                      ("db", gb, gbr, every.expand(f))):
+            errs[name] = max(errs.get(name, 0.0), _compare(
+                f"MaskedConv3Fn {name}, {label}", got, ref, valid)[0])
+        dym = torch.where(m[..., None], dy, torch.zeros((), dtype=bf, device=dev))
+        xm = torch.where(m[..., None], x, torch.zeros((), dtype=bf, device=dev))
+        w_t = w.flip(0).transpose(1, 2)
+        t = times[label] = dict(
+            fwd=time_ms(lambda: conv.masked_conv3(x, m, w, b, tiles=tiles)),
+            fwd_plain=time_ms(lambda: conv.masked_conv3_plain(x, m, w, b)),
+            dx=time_ms(lambda: conv.conv3_dx(dym, m, w, tiles)),
+            dx_plain=time_ms(lambda: conv.masked_conv3_plain(dym, m, w_t)),
+            dw=time_ms(lambda: conv.conv3_weight_grad(xm, dym)),
+        )
+        print(f"train conv (row 6) at {(X, Z, Y, f)}, {label}: forward {t['fwd']:.3f} ms "
+              f"vs plain {t['fwd_plain']:.3f} ms; dx {t['dx']:.3f} ms vs plain "
+              f"{t['dx_plain']:.3f} ms; dw (plain per-tap products) {t['dw']:.3f} ms",
+              flush=True)
+    t = times["decoder, near dense"]
+    return dict(name="conv3_dx", source="pasco_torch/csrc/masked_conv3.cu",
+                replaces="pasco_tpu/ops/pallas_conv.py:1303", max_abs_err=errs["dx"],
+                ms=t["dx"], plain_ms=t["dx_plain"])
+
+
+def narrow_step_check(dev):
+    """One train step at ``flagship_narrow_config(n_infers=1)`` with the
+    kernels on the card (bf16) against the same step with the plain
+    versions on the CPU, in bf16 and in f32, from the same weights and
+    inputs.  The decoder caps are raised to the box's cell count, so the
+    Gumbel cap is a no-op; the config has no point dropout; the BN biases
+    are drawn non-zero (at a zero bias, a leaky/relu between two BNs makes
+    the first one's scale gradient structurally zero).
+
+    In bf16 this model's gradient at random init is far from its f32
+    gradient (median 25% in norm per parameter, measured for both the
+    plain CPU path and the kernels, PERF.md), and the two bf16 paths
+    differ from each other about as much, so the kernels are held to the
+    plain bf16 path's own accuracy: every loss term within
+    ``5e-2 * |ref| + 5e-2`` of the plain bf16 step, and for every
+    parameter ``|g - g_f32| <= 1.5 * |g_bf16 - g_f32| + 0.05 * |g_f32|``
+    in norm, with the median over parameters of the left side at most 1.2
+    times the right side's; the structurally zero gradients (rounding
+    noise) stay below ``1e-2`` of the largest gradient."""
+    from pasco_tpu.core.config import OptimConfig, flagship_narrow_config
+    from pasco_torch.models.norm import BatchNorm
+    from pasco_torch.models.unet import build_net, scene_to_model_input
+    from pasco_torch.training import step as tstep
+
+    cfg = flagship_narrow_config(n_infers=1)
+    ex, ey, ez = cfg.scene.box_extent
+    n = ex * ey * ez
+    cfg = cfg.replace(
+        capacity=dataclasses.replace(cfg.capacity, dec_s4=n // 64, dec_s2=n // 8, dec_s1=n),
+        optim=OptimConfig(lr=1e-3, warmup_steps=0))
+    col = train_scenes(cfg, 1, seed=1)[0]
+    freqs = {s: np.ones(cfg.model.n_classes) for s in (1, 2, 4)}
+    lw = tstep.labelweights_for(cfg, freqs)
+    cw = tstep.class_weight_vector(cfg.model.n_classes, cfg.loss.no_object_weight)
+    init = build_net(cfg)
+    init.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in init.modules():
+            if isinstance(m, BatchNorm):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+    runs = {}
+    for name, dtype, d in (("cuda", "bfloat16", dev), ("cpu", "bfloat16", torch.device("cpu")),
+                           ("cpu f32", "float32", torch.device("cpu"))):
+        c = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+        model = build_net(c)
+        model.load_state_dict(init.state_dict())
+        state = tstep.create_train_state(model.to(d), c)
+        t0 = time.perf_counter()
+        logs = tstep.train_step(
+            state, scene_to_model_input(col, d), tstep.targets_to_device(col.targets, d),
+            {s: torch.as_tensor(v, device=d) for s, v in lw.items()},
+            torch.as_tensor(cw, device=d), c)
+        runs[name] = ({k: float(v) for k, v in logs.items()},
+                      {k: p.grad.float().cpu() for k, p in model.named_parameters()},
+                      time.perf_counter() - t0)
+    (logs, grads, t_gpu), (ref_logs, ref_g, t_cpu), (_, g32, _) = (
+        runs["cuda"], runs["cpu"], runs["cpu f32"])
+    worst = max(abs(logs[k] - v) / (5e-2 * abs(v) + 5e-2) for k, v in ref_logs.items())
+    top = max(v.abs().max().item() for v in g32.values())
+    err, err_plain = {}, {}
+    for k, v in g32.items():
+        if not STRUCTURALLY_ZERO.search(k):
+            err[k] = ((grads[k] - v).norm() / v.norm().clamp(min=1e-30)).item()
+            err_plain[k] = ((ref_g[k] - v).norm() / v.norm().clamp(min=1e-30)).item()
+    over = {k: (err[k], err_plain[k]) for k in err if err[k] > 1.5 * err_plain[k] + 0.05}
+    med, med_plain = statistics.median(err.values()), statistics.median(err_plain.values())
+    zero = max(max(grads[k].abs().max().item(), v.abs().max().item())
+               for k, v in ref_g.items() if STRUCTURALLY_ZERO.search(k))
+    ratio = max(err[k] / max(err_plain[k], 1e-12) for k in err)
+    print(f"narrow step: total_loss {logs['total_loss']:.6g} (cuda bf16) vs "
+          f"{ref_logs['total_loss']:.6g} (cpu plain bf16) vs "
+          f"{runs['cpu f32'][0]['total_loss']:.6g} (cpu plain f32); worst loss term at "
+          f"{worst:.3f} of its bound; gradient error against f32, median over "
+          f"parameters: {med:.4g} (cuda) vs {med_plain:.4g} (cpu bf16), worst "
+          f"ratio {ratio:.3f}; structurally zero max {zero:.3g} vs bound "
+          f"{1e-2 * top:.3g}; step {t_gpu:.2f} s (cuda) / {t_cpu:.2f} s (cpu bf16)",
+          flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"narrow step: loss terms differ ({worst:.3f} of the bound)")
+    if over or not med <= 1.2 * med_plain or not zero <= 1e-2 * top:
+        raise AssertionError(f"narrow step: gradients off: {dict(list(over.items())[:5])}, "
+                             f"median {med:.4g} vs {med_plain:.4g}, zero {zero:.3g}")
+
+
+def train_phase(cfg, cols, dev):
+    """The flagship train step through the trainer: one warm-up step, then
+    ``N_TRAIN_STEPS`` timed ones.  Returns the launches per step."""
+    from pasco_torch import kernels
+    from pasco_torch.models.norm import BatchNorm
+    from pasco_torch.training.loop import train
+
+    state = train(cfg, cols[:1], device=dev, log=None)       # warm-up
+    stats0 = {k: v.clone() for k, v in state.net.state_dict().items()
+              if k.endswith((".mean", ".var"))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = train(cfg, cols[1:], state=state, log=None)
+    wall = time.perf_counter() - t0
+    launches = {k: v / N_TRAIN_STEPS for k, v in kernels.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    recs = state.history[1:]
+    for r in recs:
+        print(f"train step {r['step']}: total_loss {r['total_loss']:.6g}, grad_norm "
+              f"{r['grad_norm']:.6g}, {r['step_s']:.4f} s, device {r['device_ms']:.2f} ms",
+              flush=True)
+    print(f"train: {wall / N_TRAIN_STEPS:.4f} s/step (host clock), device "
+          f"{statistics.mean(r['device_ms'] for r in recs):.2f} ms/step, peak "
+          f"{peak:.3f} GB, launches per step {launches}", flush=True)
+    if not all(np.isfinite(r["total_loss"]) and np.isfinite(r["grad_norm"])
+               and r["grad_norm"] > 0 for r in recs):
+        raise AssertionError(f"train: non-finite loss or gradient: {recs}")
+    n_bn = sum(isinstance(m, BatchNorm) for m in state.net.modules())
+    still = [k for k, v in stats0.items() if torch.equal(v, state.net.state_dict()[k])]
+    if len(stats0) != 2 * n_bn or still:
+        raise AssertionError(f"train: running statistics did not move: {still[:5]}")
+    short = {k: launches[k] for k in ("masked_conv3", "conv3_dx")
+             if launches[k] < RES_CONVS}
+    if short:
+        raise AssertionError(f"train: conv kernels launched too rarely per step: {short}")
+    return {k: v for k, v in kernels.LAUNCHES.items()}
 
 
 def main():
@@ -355,9 +592,17 @@ def main():
           f"{res['inference_time']:.3f} s, ensemble {res['ensemble_time']:.3f} s",
           flush=True)
 
+    train_cols = train_scenes(cfg, 1 + N_TRAIN_STEPS)
+    dx_row = train_conv_phase(cfg, train_cols[0], gen, dev)
+    narrow_step_check(dev)
+    train_launches = train_phase(cfg, train_cols, dev)
+
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    dx_row["launches"] = train_launches["conv3_dx"]
+    rows.append(dx_row)
     for r in rows:
         r["route"] = "cuda"
-        r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,12 @@
 //   out = mask * [relu](conv3_same(x', w) + bias [+ skip])  (epilogue)
 // and out is exact zero at mask-invalid cells.
 //
+// It also replaces the training conv pasco_tpu/ops/pallas_conv.py:
+// packed_conv_trainable (_packed_kernel, whose Pallas body differs from
+// _fused_kernel only in the TPU layout): with the prologue off it is that
+// conv's forward, and on the masked cotangent with flipped taps and Ci/Co
+// swapped it is its data gradient (pasco_torch/ops/conv.py:MaskedConv3Fn).
+//
 // What bounds it on an H100: a full-box stride-1 conv is ~0.66 TFLOP
 // against ~1 GB of bf16 traffic, far above the card's ~295 FLOP/byte
 // balance point, so it is tensor-core bound.  Design: an implicit GEMM

@@ -1,41 +1,56 @@
-"""Dense-with-masks PaSCo network, inference at ``n_infers == 1``
-(counterpart of ``pasco_tpu/models/dense_unet.py:85-1506``).
+"""Dense-with-masks PaSCo network at ``n_infers == 1``, inference and
+training (counterpart of ``pasco_tpu/models/dense_unet.py:85-1506``).
 
 Every U-Net stage computes on a dense ``[X, Z, Y, C]`` volume over the
-working box with an ``[X, Z, Y]`` occupancy mask.  Stage interiors run
+working box with an ``[X, Z, Y]`` occupancy mask.  At inference
+(``net.eval()``, the state a new net is built in) stage interiors run
 through the four hand-written kernels (``pasco_torch/ops``): the residual
 and refiner convs through ``masked_conv3``, the encoder downs through
 ``down2_fused``, the decoder preambles through ``up_preamble`` and every
 extraction through ``stream_extract``.  Each op returns exact zeros at
-mask-invalid cells, so no stage needs a separate masking pass.  On a CPU
-tensor the ops run their plain PyTorch versions.
+mask-invalid cells, so no stage needs a separate masking pass.
+
+In training (``net.train()``) BatchNorm normalises with batch statistics,
+so the BN affines cannot fold into kernel prologues.  As in the
+reference's train branches, every 3^3 conv runs unfused as the
+differentiable :class:`~pasco_torch.ops.conv.MaskedConv3Fn` (forward and
+data gradient on the conv kernel), the downs and up-preambles run as plain
+PyTorch (XLA in the reference), the decoder keep sets are capped by
+:func:`~pasco_torch.ops.dense_ops.cap_keep_gumbel`, and extraction gathers
+the payload rows differentiably.  ``cfg.model.remat`` rematerialises the
+residual blocks, the bottleneck and the refiners as flax's ``nn.remat``
+does.  On a CPU tensor every op runs its plain PyTorch version.
 
 Submodule and parameter names equal the flax names, and parameters keep
 the flax shapes (conv kernels ``[taps, Ci, Co]``, BN ``scale``/``bias``/
 ``mean``/``var``); :mod:`pasco_torch.convert` maps a flax variable tree
-onto this module.  Training, MC dropout and ``n_infers > 1`` are not
-ported yet (ROADMAP.md, queue 1).
+onto this module.  MC dropout and ``n_infers > 1`` are not ported yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pasco_tpu.core.config import PaSCoConfig
 from pasco_torch.core.sparse import Box, SparseGrid, stack_grids
 from pasco_torch.models.blocks import ConvParams
 from pasco_torch.models.bottleneck import SPCDense3D
-from pasco_torch.models.norm import TRAINING_NOT_PORTED, BatchNorm
+from pasco_torch.models.norm import MC_DROPOUT_NOT_PORTED, BatchNorm, masked_moments
 from pasco_torch.models.transformer import TransformerPredictor
 from pasco_torch.models.unet import ModelInput, ModelOutput
-from pasco_torch.ops.conv import conv_tiles, masked_conv3
+from pasco_torch.ops.conv import MaskedConv3Fn, conv_tiles, masked_conv3
 from pasco_torch.ops.deconv import up_preamble, up_tiles
 from pasco_torch.ops.dense_ops import (
-    bbox_mask, extract_sparse, maxpool2_mask, scatter_max_rows, upsample2_mask)
+    bbox_mask, cap_keep_gumbel, deconv2_dense, down2_dense, extract_sparse,
+    extract_sparse_train, maxpool2_mask, point_dropout, scatter_max_rows,
+    upsample2_mask)
 from pasco_torch.ops.down import down2_fused, down_tiles
 
 NEG = -1e30   # finite featurizer sentinel (dense_unet.py:1137-1145)
@@ -44,6 +59,18 @@ NEG = -1e30   # finite featurizer sentinel (dense_unet.py:1137-1145)
 def _tiles(fn, mask):
     """Tile list for the CUDA kernels; the plain versions take none."""
     return fn(mask) if mask.is_cuda else None
+
+
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``, recomputed in backward when ``on`` (flax ``nn.remat``)."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _masked(x, mask):
+    return torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 class PointMLP(nn.Module):
@@ -67,9 +94,12 @@ class PointMLP(nn.Module):
 
 
 class DenseResBlock(nn.Module):
-    """Pre-activation residual block as two fused convs:
+    """Pre-activation residual block.  Inference: two fused convs,
     ``conv1`` with the bn1 affine + relu prologue, ``conv2`` with the bn2
-    prologue and the residual add + relu epilogue (``dense_unet.py:471-505``)."""
+    prologue and the residual add + relu epilogue (``dense_unet.py:471-505``).
+    Training: bn1, relu, conv1, bn2, relu, conv2, skip add, relu
+    (``dense_unet.py:429-469``).  ``x`` is zero at invalid cells and so is
+    every conv output, so the sum needs no mask."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -78,11 +108,24 @@ class DenseResBlock(nn.Module):
         self.conv2 = ConvParams((27, ch, ch), (ch,))
 
     def forward(self, x, mask, tiles):
+        if self.training:
+            f = torch.relu(self.bn1(x, mask))
+            f = MaskedConv3Fn.apply(f, mask, self.conv1.kernel, self.conv1.bias, tiles)
+            f = torch.relu(self.bn2(f, mask))
+            f = MaskedConv3Fn.apply(f, mask, self.conv2.kernel, self.conv2.bias, tiles)
+            return torch.relu(x + f)
         f = masked_conv3(x, mask, self.conv1.kernel, self.conv1.bias,
                          affine=self.bn1.affine(), relu_in=True, tiles=tiles)
         return masked_conv3(f, mask, self.conv2.kernel, self.conv2.bias,
                             affine=self.bn2.affine(), relu_in=True, skip=x,
                             relu_out=True, tiles=tiles)
+
+
+def _res_stack(stage, x, mask, tiles):
+    for i in range(stage.n_res):
+        x = _remat(stage.remat and stage.training, getattr(stage, f"res{i}"),
+                   x, mask, tiles)
+    return x
 
 
 class DenseDown(nn.Module):
@@ -96,6 +139,10 @@ class DenseDown(nn.Module):
 
     def forward(self, x, mask):
         new_mask = maxpool2_mask(mask)
+        if self.training:   # plain stride-2 conv + BN-train (dense_unet.py:517-555)
+            f = down2_dense(x, self.kernel, self.bias)
+            f = F.leaky_relu(self.bn1(f, new_mask), 0.01)
+            return torch.relu(self.bn2(f, new_mask)), new_mask
         out = down2_fused(x, mask, new_mask, self.kernel, self.bias,
                           self.bn1.affine(), self.bn2.affine(),
                           tiles=_tiles(down_tiles, new_mask))
@@ -105,21 +152,18 @@ class DenseDown(nn.Module):
 class DenseEncStage(nn.Module):
     """Optional down step + residual stack; returns (x, mask)."""
 
-    def __init__(self, ci: int, co: int, down: bool, n_res: int):
+    def __init__(self, ci: int, co: int, down: bool, n_res: int, remat: bool):
         super().__init__()
         if down:
             self.down = DenseDown(ci, co)
-        self.n_res = n_res
+        self.n_res, self.remat = n_res, remat
         for i in range(n_res):
             self.add_module(f"res{i}", DenseResBlock(co))
 
     def forward(self, x, mask):
         if hasattr(self, "down"):
             x, mask = self.down(x, mask)
-        tiles = _tiles(conv_tiles, mask)
-        for i in range(self.n_res):
-            x = getattr(self, f"res{i}")(x, mask, tiles)
-        return x, mask
+        return _res_stack(self, x, mask, _tiles(conv_tiles, mask)), mask
 
 
 class DenseDecoderStage(nn.Module):
@@ -128,9 +172,9 @@ class DenseDecoderStage(nn.Module):
     per-subnet semantic heads (``dense_unet.py:698-969``)."""
 
     def __init__(self, ci: int, ch: int, n_infers: int, n_classes: int,
-                 n_res: int, scale: int):
+                 n_res: int, scale: int, remat: bool):
         super().__init__()
-        self.scale, self.n_res = scale, n_res
+        self.scale, self.n_res, self.remat = scale, n_res, remat
         self.up_kernel = nn.Parameter(torch.zeros((8, ci, ch)))
         self.up_bias = nn.Parameter(torch.zeros((ch,)))
         self.up_bn = BatchNorm(ch)
@@ -145,34 +189,91 @@ class DenseDecoderStage(nn.Module):
         msk_child = upsample2_mask(parent_keep) & bbox_mask(
             box, self.scale, gmin, gmax)
         msk = msk_child | skip_mask
-        x = up_preamble(
-            x, parent_keep, msk_child, msk, skip, box, self.scale,
-            self.up_kernel, self.up_bias, self.up_bn.affine(),
-            self.resize_bn.affine(), self.resize.kernel[0], self.resize.bias,
-            tiles=_tiles(up_tiles, msk),
-        )
-        tiles = _tiles(conv_tiles, msk)
-        for i in range(self.n_res):
-            x = getattr(self, f"res{i}")(x, msk, tiles)
+        if self.training:
+            x = self._preamble_train(x, parent_keep, msk_child, skip, box)
+        else:
+            x = up_preamble(
+                x, parent_keep, msk_child, msk, skip, box, self.scale,
+                self.up_kernel, self.up_bias, self.up_bn.affine(),
+                self.resize_bn.affine(), self.resize.kernel[0], self.resize.bias,
+                tiles=_tiles(up_tiles, msk),
+            )
+        x = _res_stack(self, x, msk, _tiles(conv_tiles, msk))
         return self._finish(x, msk)
+
+    def _preamble_train(self, x, parent_keep, msk_child, skip, box):
+        """The unfused train preamble (``dense_unet.py:775-830``): plain
+        deconv, up_bn over the child set, leaky, the coordinate resize,
+        then the union add with the skip (zero outside ``skip_mask``)."""
+        x = deconv2_dense(_masked(x, parent_keep), self.up_kernel, self.up_bias)
+        x = F.leaky_relu(self.up_bn(x, msk_child), 0.01)
+        return _masked(self._resize(x, msk_child, box), msk_child) + skip.to(x.dtype)
+
+    def _resize(self, x, mask, box):
+        """``resize_bn`` + the 1x1 ``resize`` over [features, cell coords /
+        scale] without the concat (``DenseBNResizeCoords``,
+        ``dense_unet.py:171-291``): the coordinate channels' statistics
+        come from the mask's marginal counts, and their contribution to the
+        1x1 is three rank-1 broadcast terms."""
+        X, Z, Y, ch = x.shape
+        s, mn, dev = self.scale, box.minimum, x.device
+
+        def axis(n, m):   # coord / scale, rounded to x's dtype as the reference does
+            v = (torch.arange(n, device=dev, dtype=torch.int32) * s + m).float() / s
+            return v.to(x.dtype).float()
+
+        cx, cz, cy = axis(X, mn[0]), axis(Z, mn[2]), axis(Y, mn[1])
+
+        def moments():
+            mean_f, var_f = masked_moments(x, mask)
+            mf = mask.float()
+            cnt = mf.sum().clamp(min=1.0)
+            m_x, m_z, m_y = mf.sum((1, 2)), mf.sum((0, 2)), mf.sum((0, 1))
+            s1c = torch.stack([m_x @ cx, m_y @ cy, m_z @ cz]) / cnt
+            s2c = torch.stack([m_x @ cx.square(), m_y @ cy.square(),
+                               m_z @ cz.square()]) / cnt
+            var_c = (s2c - s1c.square()).clamp(min=0.0)
+            return torch.cat([mean_f, s1c]), torch.cat([var_f, var_c])
+
+        bn = self.resize_bn
+        mean, var = bn.stats(moments)
+        inv = torch.rsqrt(var + bn.epsilon) * bn.scale
+        shift = bn.bias - mean * inv
+        wr, br = self.resize.kernel[0], self.resize.bias
+        out = (x.float() * inv[:ch] + shift[:ch]) @ wr[:ch]
+        cc = [c * inv[ch + j] + shift[ch + j] for j, c in enumerate((cx, cy, cz))]
+        coord = (cc[0][:, None, None, None] * wr[ch]
+                 + cc[2][None, :, None, None] * wr[ch + 2]
+                 + cc[1][None, None, :, None] * wr[ch + 1] + br)
+        return (out + coord).to(x.dtype)
 
     def _finish(self, x, msk):
         """Per-subnet sem heads.  The logits are rounded to bf16 and the
         argmax reads the ROUNDED logits, like the reference
         (``dense_unet.py:898-915, 951-968``): extraction sets depend on the
         tie rule.  Returns (x, sem [X,Z,Y,S,K] bf16, top_class [X,Z,Y,S],
-        msk)."""
+        top_prob [X,Z,Y,S] bf16 (training only, else None), msk)."""
         S, ch, K = self.head_kernel.shape
         X, Z, Y, _ = x.shape
         w = self.head_kernel.to(x.dtype).float().permute(1, 0, 2).reshape(ch, S * K)
         sem = x.reshape(-1, ch).float() @ w + self.head_bias.reshape(-1)
         sem = sem.to(torch.bfloat16).reshape(X, Z, Y, S, K)
         top_class = sem.argmax(dim=-1).to(torch.int32)
+        top_prob = None
+        if self.training:
+            # softmax prob of the argmax: 1 / sum(exp(sem - max)), the
+            # difference rounded as the bf16 logits are (reduce_sem)
+            with torch.no_grad():
+                mx = sem.amax(dim=-1, keepdim=True)
+                se = (sem - mx).float().exp().sum(-1)
+                top_prob = torch.where(msk[..., None], (1.0 / se).to(torch.bfloat16),
+                                       torch.zeros((), dtype=torch.bfloat16,
+                                                   device=sem.device))
         sem = torch.where(msk[..., None, None], sem,
                           torch.zeros((), dtype=sem.dtype, device=sem.device))
         top_class = torch.where(msk[..., None], top_class,
                                 torch.zeros_like(top_class))
-        return x, sem, top_class, msk
+        return x, sem, top_class, top_prob, msk
 
 
 class DenseVoxelFeatsRefiner(nn.Module):
@@ -186,11 +287,17 @@ class DenseVoxelFeatsRefiner(nn.Module):
         self.bn = BatchNorm((S, ch))
         self.conv2 = ConvParams((S, 27, ch, ch), (S, ch))
 
-    def forward(self, x, keep, s: int):
-        """Subnet ``s``: conv1 with a mask-only prologue and no bias, then
-        conv2 with the bn affine + relu prologue (``dense_unet.py:1034-1061``);
-        active tiles come from the subnet's sparser keep set."""
-        tiles = _tiles(conv_tiles, keep)
+    def forward(self, x, keep, s: int, tiles):
+        """Subnet ``s`` on its keep set (``tiles`` from ``conv_tiles(keep)``).
+        Inference: conv1 with a mask-only prologue and no bias, then conv2
+        with the bn affine + relu prologue (``dense_unet.py:1034-1061``).
+        Training: conv1, BN-train, relu, conv2 (``dense_unet.py:1012-1031``),
+        both convs through the differentiable conv kernel."""
+        if self.training:
+            g = MaskedConv3Fn.apply(x, keep, self.conv1.kernel[s], None, tiles)
+            f = torch.relu(self.bn(g, keep, index=s))
+            return MaskedConv3Fn.apply(f, keep, self.conv2.kernel[s],
+                                       self.conv2.bias[s], tiles)
         a, c = self.bn.affine()
         g = masked_conv3(x, keep, self.conv1.kernel[s], tiles=tiles)
         return masked_conv3(g, keep, self.conv2.kernel[s], self.conv2.bias[s],
@@ -213,19 +320,20 @@ class DensePaSCoNet(nn.Module):
         S = m.n_infers
         self.point_mlp = PointMLP(m.in_channels, m.f)
         self.enc_in = ConvParams((1, S * m.f, fm[0]), (fm[0],))
-        self.enc_s1 = DenseEncStage(fm[0], fm[0], False, n_res)
+        self.enc_s1 = DenseEncStage(fm[0], fm[0], False, n_res, m.remat)
         for si, stride in enumerate((2, 4, 8)):
-            self.add_module(f"enc_s{stride}", DenseEncStage(fm[si], fm[si + 1], True, n_res))
+            self.add_module(f"enc_s{stride}", DenseEncStage(
+                fm[si], fm[si + 1], True, n_res, m.remat))
         self.bottleneck = SPCDense3D(fm[3])
         dec_ch = fm[::-1]
         for i, scale in enumerate((4, 2, 1)):
             self.add_module(f"dec_s{scale}", DenseDecoderStage(
-                dec_ch[i], dec_ch[i + 1], S, m.n_classes, dec_n_res, scale))
+                dec_ch[i], dec_ch[i + 1], S, m.n_classes, dec_n_res, scale, m.remat))
         for scale, ch in zip((4, 2, 1), dec_ch[1:]):
             self.add_module(f"voxel_feats_s{scale}", DenseVoxelFeatsRefiner(ch, S))
         self.transformer = TransformerPredictor(
             m.transformer, m.n_classes, S, (m.f * 4, m.f * 2, m.f))
-        self.eval()   # inference only
+        self.eval()   # built for inference; net.train() selects the training forward
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -278,10 +386,17 @@ class DensePaSCoNet(nn.Module):
             elif leaf in ("query_feat", "query_embed"):
                 p.copy_(torch.randn(p.shape, generator=generator))
 
-    def forward(self, inp: ModelInput, train: bool = False,
+    def forward(self, inp: ModelInput,
+                labelweights: Optional[Dict[int, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
                 mc_dropout: bool = False) -> ModelOutput:
-        if train or mc_dropout or self.training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
+        """One scene.  In training mode (``self.training``) ``labelweights``
+        (scale -> [n_classes] completion weights) weight the decoder caps'
+        sampling scores, and ``generator`` (on the input's device) draws the
+        point dropout, the caps' Gumbel noise and the transformer dropout."""
+        if mc_dropout:
+            raise NotImplementedError(MC_DROPOUT_NOT_PORTED)
+        train = self.training
         cfg = self.cfg
         m = cfg.model
         cap = cfg.capacity
@@ -293,6 +408,8 @@ class DensePaSCoNet(nn.Module):
 
         # ---- point MLP + scatter-max featurizer --------------------------
         pm = inp.point_mask
+        if train and m.encoder_dropouts[0] > 0.0:
+            pm = point_dropout(pm, m.encoder_dropouts[0], generator)
         f = self.point_mlp(inp.point_feats, pm)
         rel = inp.point_coords[:, 1:] - box.minimum[None, :]
         in_box = (pm & (rel >= 0).all(-1) & (rel[:, 0] < ex)
@@ -302,7 +419,8 @@ class DensePaSCoNet(nn.Module):
         grid_f = scatter_max_rows(f.to(cd), flat_idx, n_cells, NEG)[:-1]
         occ = grid_f.amax(-1) > torch.tensor(NEG, dtype=cd)
         # Values at occupied cells are unchanged; empties become zero (the
-        # sentinel never reaches a product).
+        # sentinel never reaches a product; at S == 1 this is the
+        # reference's train-time sentinel zeroing, dense_unet.py:1178-1189).
         x = torch.where(occ[:, None], grid_f, torch.zeros((), dtype=cd,
                                                           device=grid_f.device))
         mask1 = occ.reshape(ex, ez, ey)
@@ -320,7 +438,8 @@ class DensePaSCoNet(nn.Module):
 
         # ---- dense bottleneck at stride 8 ([X, Y, Z] inside) --------------
         x8 = enc[8][0].permute(0, 2, 1, 3).float()
-        xb = self.bottleneck(x8, cd).to(cd).permute(0, 2, 1, 3)
+        xb = _remat(m.remat and train, self.bottleneck, x8, cd)
+        xb = xb.to(cd).permute(0, 2, 1, 3)
         mask8 = bbox_mask(box, 8, inp.global_min, inp.global_max)
         x = torch.where(mask8[..., None], xb, torch.zeros((), dtype=cd,
                                                           device=xb.device)).contiguous()
@@ -332,46 +451,70 @@ class DensePaSCoNet(nn.Module):
         dense = {}
         for scale in (4, 2, 1):
             stage = getattr(self, f"dec_s{scale}")
-            x, sem, top_class, msk = stage(
+            x, sem, top_class, top_prob, msk = stage(
                 x, parent_keep, enc[scale][0], enc[scale][1], box,
                 inp.global_min, inp.global_max)
             keep = (top_class != 0).any(-1) & msk
-            dense[scale] = (x, top_class, keep)
-            # Only scale 1's logits are consumed at inference; the grids'
-            # features have no consumer (zeros, as in the reference).
             dcap = cap.dec_capacity(scale)
-            payload = sem.reshape(*sem.shape[:3], -1) if scale == 1 else None
-            coords, valid, vals = extract_sparse(keep, box, scale, dcap, payload)
+            if train:
+                # Train-time voxel cap (dense_unet.py:1322-1335): the capped
+                # keep feeds the extractions and the next stage.
+                tp = top_prob.float()
+                w = None if labelweights is None else labelweights.get(scale)
+                if w is not None:
+                    tp = tp * w.to(tp.device)[top_class.long()]
+                score = (tp * (top_class != 0)).amax(-1)
+                keep = cap_keep_gumbel(keep, score, dcap, generator)
+            dense[scale] = (x, sem, top_class, keep)
+            # Inference reads scale 1's logits only; training supervises all
+            # three.  The grids' features have no consumer (zeros, as in
+            # the reference).
+            payload = sem.reshape(*sem.shape[:3], -1)
+            if train:
+                coords, valid, vals = extract_sparse_train(keep, box, scale, dcap, payload)
+            else:
+                coords, valid, vals = extract_sparse(
+                    keep, box, scale, dcap, payload if scale == 1 else None)
             feats = torch.zeros((dcap, x.shape[-1]), dtype=x.dtype, device=x.device)
             xs[scale] = SparseGrid(coords, feats, valid, scale)
             sem_at[scale] = (
-                vals.float().reshape(dcap, S, m.n_classes) if scale == 1
+                vals.float().reshape(dcap, S, m.n_classes) if train or scale == 1
                 else torch.zeros((dcap, S, m.n_classes), device=x.device)
             )
             parent_keep = keep
 
         # ---- per-subnet refiners + extraction ------------------------------
         panop_grids: Dict[int, SparseGrid] = {}
+        sem_pruned = torch.zeros((S, cap.panop_s1, m.n_classes), device=x.device)
         for scale in (4, 2, 1):
-            xd, top_class, dkeep = dense[scale]
+            xd, sem, top_class, dkeep = dense[scale]
             refiner = getattr(self, f"voxel_feats_s{scale}")
-            sub = []
+            pcap = cap.panop_capacity(scale)
+            sub, sub_sem = [], []
             for s in range(S):
                 keep_s = ((top_class[..., s] != 0) & dkeep & bbox_mask(
                     box, scale, inp.subnet_min[s], inp.subnet_max[s]))
-                refined = refiner(xd, keep_s, s)
-                coords, valid, vals = extract_sparse(
-                    keep_s, box, scale, cap.panop_capacity(scale), refined)
+                refined = _remat(m.remat and train, refiner, xd, keep_s, s,
+                                 _tiles(conv_tiles, keep_s))
+                if train:
+                    coords, valid, vals = extract_sparse_train(
+                        keep_s, box, scale, pcap, refined)
+                    if scale == 1:   # pruned logits for the criterion
+                        sub_sem.append(extract_sparse_train(
+                            keep_s, box, scale, pcap, sem[..., s, :])[2].float())
+                else:
+                    coords, valid, vals = extract_sparse(
+                        keep_s, box, scale, pcap, refined)
                 coords[:, 0] = s
                 sub.append(SparseGrid(coords, vals, valid, scale))
             panop_grids[scale] = stack_grids(sub)
+            if sub_sem:
+                sem_pruned = torch.stack(sub_sem)
 
         return ModelOutput(
             sem_grids=xs,
             sem_logits=sem_at,
             panop_grids=panop_grids,
-            # the pruned logits feed a training loss only
-            sem_logits_pruned=torch.zeros((S, cap.panop_s1, m.n_classes),
-                                          device=x.device),
-            predictor=self.transformer(panop_grids, box),
+            sem_logits_pruned=sem_pruned,
+            predictor=self.transformer(panop_grids, box, generator),
         )

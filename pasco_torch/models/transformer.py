@@ -1,8 +1,10 @@
 """Mask2Former-style transformer predictor over padded sparse voxel sets
 (counterpart of ``pasco_tpu/models/transformer.py:43-286``).
 
-Inference only.  The attention layers' parameters are shared by every
-subnet (``transformer.py:255-272``); subnets run one after another.  The
+The attention layers' parameters are shared by every subnet
+(``transformer.py:255-272``); subnets run one after another.  In training
+mode the residual branches take ``cfg.dropout`` (0.0 in the flagship),
+with draws from the caller's generator.  The
 sparse sine positional embedding keeps the reference's degenerate
 "normalize" (``x / (x + eps) * 2*pi``) for parity.
 """
@@ -10,7 +12,7 @@ sparse sine positional embedding keeps the reference's degenerate
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,6 +22,16 @@ from pasco_torch.models.blocks import MLP
 from pasco_torch.ops.attention import masked_cross_attention, self_attention
 
 LN_EPS = 1e-6    # flax LayerNorm default
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate``, rescaled."""
+    if rate == 0.0 or not training:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 def sine_position_encoding(coords: torch.Tensor, num_pos_feats: int,
@@ -45,53 +57,57 @@ class CrossAttentionLayer(nn.Module):
     """Pre-norm masked cross-attention; the residual adds onto the normed
     queries (reference ``blocks.py:48-91``)."""
 
-    def __init__(self, hidden_dim: int, num_heads: int, kv_chunk: int):
+    def __init__(self, hidden_dim: int, num_heads: int, kv_chunk: int,
+                 rate: float = 0.0):
         super().__init__()
-        self.num_heads, self.kv_chunk = num_heads, kv_chunk
+        self.num_heads, self.kv_chunk, self.rate = num_heads, kv_chunk, rate
         self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, nn.Linear(hidden_dim, hidden_dim))
 
-    def forward(self, q_embed, src, allowed, pos, query_pos):
+    def forward(self, q_embed, src, allowed, pos, query_pos, generator=None):
         x = self.norm(q_embed)
         q = self.q_proj(x + query_pos)
         k = self.k_proj(src + pos)
         v = self.v_proj(src + pos)
         out = masked_cross_attention(q, k, v, allowed, self.num_heads,
                                      chunk=self.kv_chunk)
-        return x + self.out_proj(out)
+        return x + dropout(self.out_proj(out), self.rate, self.training, generator)
 
 
 class SelfAttentionLayer(nn.Module):
     """Post-norm query self-attention (reference ``blocks.py:9-45``)."""
 
-    def __init__(self, hidden_dim: int, num_heads: int):
+    def __init__(self, hidden_dim: int, num_heads: int, rate: float = 0.0):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.rate = num_heads, rate
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, nn.Linear(hidden_dim, hidden_dim))
         self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
-    def forward(self, q_embed, query_pos):
+    def forward(self, q_embed, query_pos, generator=None):
         q = self.q_proj(q_embed + query_pos)
         k = self.k_proj(q_embed + query_pos)
         v = self.v_proj(q_embed)
         out = self.out_proj(self_attention(q, k, v, self.num_heads))
+        out = dropout(out, self.rate, self.training, generator)
         return self.norm(q_embed + out)
 
 
 class FFNLayer(nn.Module):
     """Pre-norm FFN with the residual on the normed stream."""
 
-    def __init__(self, hidden_dim: int, dim_feedforward: int):
+    def __init__(self, hidden_dim: int, dim_feedforward: int, rate: float = 0.0):
         super().__init__()
+        self.rate = rate
         self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         self.fc1 = nn.Linear(hidden_dim, dim_feedforward)
         self.fc2 = nn.Linear(dim_feedforward, hidden_dim)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         y = self.norm(x)
-        return y + self.fc2(torch.relu(self.fc1(y)))
+        h = dropout(torch.relu(self.fc1(y)), self.rate, self.training, generator)
+        return y + dropout(self.fc2(h), self.rate, self.training, generator)
 
 
 def downscale_attn_allowed(mask_pred: torch.Tensor, grid1: SparseGrid,
@@ -128,12 +144,12 @@ class TransformerPredictor(nn.Module):
         for i, _ in enumerate(cfg.src_scales):
             self.add_module(f"input_proj_{i}", nn.Linear(in_channels[i], H))
             self.add_module(f"cross_{i}", CrossAttentionLayer(
-                H, cfg.num_heads, cfg.kv_chunk))
-            self.add_module(f"self_{i}", SelfAttentionLayer(H, cfg.num_heads))
-            self.add_module(f"ffn_{i}", FFNLayer(H, cfg.dim_feedforward))
+                H, cfg.num_heads, cfg.kv_chunk, cfg.dropout))
+            self.add_module(f"self_{i}", SelfAttentionLayer(H, cfg.num_heads, cfg.dropout))
+            self.add_module(f"ffn_{i}", FFNLayer(H, cfg.dim_feedforward, cfg.dropout))
 
-    def forward(self, panop_grids: Dict[int, SparseGrid],
-                box: Box) -> PredictorOutput:
+    def forward(self, panop_grids: Dict[int, SparseGrid], box: Box,
+                generator: Optional[torch.Generator] = None) -> PredictorOutput:
         cfg = self.cfg
         S = self.n_infers
         npf = cfg.hidden_dim // 3
@@ -169,9 +185,9 @@ class TransformerPredictor(nn.Module):
                 allowed = downscale_attn_allowed(
                     preds_mask[-1][s], grid1.subnet(s), gs, box, scale)
                 o = getattr(self, f"cross_{i}")(
-                    output[s], src[s], allowed, pos_s, self.query_embed[s])
-                outs.append(getattr(self, f"self_{i}")(o, self.query_embed[s]))
-            output = getattr(self, f"ffn_{i}")(torch.stack(outs))
+                    output[s], src[s], allowed, pos_s, self.query_embed[s], generator)
+                outs.append(getattr(self, f"self_{i}")(o, self.query_embed[s], generator))
+            output = getattr(self, f"ffn_{i}")(torch.stack(outs), generator)
             cls, msk = pred_heads(output)
             preds_class.append(cls)
             preds_mask.append(msk)

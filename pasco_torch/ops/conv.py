@@ -8,6 +8,13 @@ A CPU tensor takes :func:`masked_conv3_plain`; a CUDA tensor launches the
 CUDA kernel ``csrc/masked_conv3.cu`` or raises.  The kernel note (what
 bounds it on the card and how the design answers) is at the top of the
 CUDA source.
+
+The same kernel is the port of the training conv
+(``pasco_tpu/ops/pallas_conv.py:packed_conv_trainable``, whose Pallas body
+``_packed_kernel`` exists apart from ``fused_packed_conv`` only for the
+TPU's layout): :class:`MaskedConv3Fn` runs ``conv3(M*x) + b`` with the
+prologue off, and its backward runs the data gradient through the kernel
+again with flipped taps (launches counted as ``conv3_dx``).
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from pasco_torch import kernels
 from pasco_torch.ops.dense_ops import conv3_dense
@@ -90,6 +98,13 @@ def masked_conv3(
     if not x.is_cuda:
         return masked_conv3_plain(x, mask, weight, bias, affine, relu_in,
                                   skip, relu_out)
+    out = _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles)
+    kernels.LAUNCHES["masked_conv3"] += 1
+    return out
+
+
+def _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles):
+    """One launch of ``csrc/masked_conv3.cu`` (the caller counts it)."""
     X, Z, Y, ci = x.shape
     co = weight.shape[-1]
     dev = x.device
@@ -118,5 +133,81 @@ def masked_conv3(
         kernels.stream_ptr(x),
     )
     kernels.check(err, "masked_conv3")
-    kernels.LAUNCHES["masked_conv3"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# training: the differentiable conv (port of packed_conv_trainable)
+# --------------------------------------------------------------------------
+
+
+def conv3_dx(dym: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
+             tiles: Optional[Tiles] = None) -> torch.Tensor:
+    """Data gradient of ``conv3(M*x, weight)`` for the masked cotangent
+    ``dym``: ``M * conv3(dym, w_t)`` with ``w_t = weight.flip(0)
+    .transpose(1, 2)`` (``pallas_conv.py:1324-1326``).  ``flip(0)`` negates
+    every tap offset because ``kernel_offsets(3)`` enumerates {-1, 0, 1}^3
+    symmetrically.  On a CUDA tensor this is one launch of the kernel with
+    ``Ci' = Co`` and ``Co' = Ci``, counted as ``conv3_dx``."""
+    w_t = weight.flip(0).transpose(1, 2)
+    if not dym.is_cuda:
+        return masked_conv3_plain(dym, mask, w_t)
+    out = _launch(dym, mask, w_t, None, None, False, None, False, tiles)
+    kernels.LAUNCHES["conv3_dx"] += 1
+    return out
+
+
+def conv3_weight_grad(xm: torch.Tensor, dym: torch.Tensor) -> torch.Tensor:
+    """``dw[t] = sum_p xm[p + off_t]^T dym[p]``, f32 ``[27, Ci, Co]``, for a
+    masked input ``xm`` and masked cotangent ``dym`` (the reference takes it
+    from XLA, ``pallas_conv.py:1327-1335``; plain PyTorch here).
+
+    Both volumes are zero-padded by one cell and flattened once; a tap is
+    then a constant row offset, so each of the 27 products reads two
+    contiguous row ranges of the padded buffers (no shifted copies).  Halo
+    rows of the padded cotangent are zero, so rows that wrap across a line
+    contribute nothing."""
+    X, Z, Y, ci = xm.shape
+    co = dym.shape[-1]
+    pad = (0, 0, 1, 1, 1, 1, 1, 1)
+    xp = F.pad(xm, pad).reshape(-1, ci)
+    dp = F.pad(dym.to(xm.dtype), pad).reshape(-1, co)
+    n = dp.shape[0]
+    sy, sz, sx = 1, Y + 2, (Z + 2) * (Y + 2)
+    dw = torch.empty((27, ci, co), dtype=torch.float32, device=xm.device)
+    for t in range(27):
+        ox, oy, oz = t // 9 - 1, (t // 3) % 3 - 1, t % 3 - 1   # kernel_offsets(3)
+        o = ox * sx + oz * sz + oy * sy
+        lo, hi = max(0, -o), min(n, n - o)
+        dw[t] = (xp[lo + o : hi + o].T @ dp[lo:hi]).float()
+    return dw
+
+
+class MaskedConv3Fn(torch.autograd.Function):
+    """``y = M * (conv3_same(M * x, w) + b)``, differentiable in x, w, b
+    (replaces ``pallas_conv.py:packed_conv_trainable``, ``_pct_fwd``,
+    ``_pct_bwd``).  Forward: :func:`masked_conv3` with its prologue off.
+    Backward: ``dx`` through the kernel again (:func:`conv3_dx`), ``dw``
+    and ``db`` in plain PyTorch.  ``bias=None`` drops ``db``, as the
+    reference's ``has_bias=False`` does.  On CPU tensors every part takes
+    its plain version."""
+
+    @staticmethod
+    def forward(ctx, x, mask, weight, bias, tiles):
+        ctx.save_for_backward(x, mask, weight)
+        ctx.tiles = tiles
+        ctx.has_bias = bias is not None
+        return masked_conv3(x, mask, weight, bias, tiles=tiles)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mask, weight = ctx.saved_tensors
+        m = mask[..., None]
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        dym = torch.where(m, dy.to(x.dtype), zero).contiguous()
+        dx = conv3_dx(dym, mask, weight, ctx.tiles).to(x.dtype)
+        dw = conv3_weight_grad(torch.where(m, x, zero), dym).to(weight.dtype)
+        db = None
+        if ctx.has_bias:
+            db = dym.reshape(-1, dym.shape[-1]).sum(0, dtype=torch.float32)
+        return dx, None, dw, db, None

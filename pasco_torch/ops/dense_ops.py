@@ -136,6 +136,71 @@ def extract_sparse(
     return coords_from_src(src, valid, keep.shape, box, stride), valid, vals
 
 
+def extract_sparse_train(
+    keep: torch.Tensor,          # [X, Z, Y] bool
+    box: Box,
+    stride: int,
+    capacity: int,
+    payload: torch.Tensor,       # [X, Z, Y, E]
+):
+    """The training form of :func:`extract_sparse`: the compaction kernel
+    gives the rows (``src``, ``valid``) with an empty payload, and the
+    payload rows are then gathered with a differentiable ``index_select``
+    and zeroed past ``valid``, so gradients reach ``payload``.  Same rows
+    in the same order as the reference's XLA extraction
+    (``dense_unet.py:1351-1378, 1469-1479``)."""
+    _, src, valid, _ = stream_extract(keep, capacity)
+    e = payload.shape[-1]
+    rows = payload.reshape(-1, e).index_select(0, src.long())
+    vals = torch.where(valid[:, None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return coords_from_src(src, valid, keep.shape, box, stride), valid, vals
+
+
+def cap_keep_gumbel(
+    keep: torch.Tensor,                  # [X, Z, Y] bool
+    score: torch.Tensor,                 # [X, Z, Y] sampling weight (>= 0)
+    cap: int,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,    # [X, Z, Y] Gumbel draws
+    iters: int = 24,
+) -> torch.Tensor:
+    """Train-time occupancy cap (``pasco_tpu/ops/dense_ops.py:684-722``):
+    weighted sampling without replacement of ``cap`` kept cells
+    proportional to ``score`` as Gumbel-top-k on ``log score``.  The k-th
+    value is found as the reference finds it, by bisecting a threshold over
+    [-60, 60] with ``iters`` counting passes, so the same noise gives the
+    same keep set (a ``topk`` would not, at the bisection's count error).
+    The count stays on the device: no host sync.  No-op when the keep
+    count is within ``cap``.  The noise comes from ``generator`` unless
+    ``noise`` is given."""
+    if noise is None:
+        u = torch.rand(keep.shape, generator=generator, device=keep.device)
+        u = u.clamp(min=torch.finfo(torch.float32).tiny)
+        noise = -torch.log(-torch.log(u))
+    z = torch.where(
+        keep,
+        torch.log(score.float().clamp(min=1e-20)) + noise.float(),
+        torch.full((), -float("inf"), device=keep.device),
+    )
+    lo = torch.full((), -60.0, device=keep.device)
+    hi = torch.full((), 60.0, device=keep.device)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        over = (z > mid).sum() > cap     # too many kept -> raise threshold
+        lo, hi = torch.where(over, mid, lo), torch.where(over, hi, mid)
+    return torch.where(keep.sum() > cap, keep & (z > hi), keep)
+
+
+def point_dropout(pm: torch.Tensor, rate: float,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Drop a random 0..``rate`` fraction of the valid points
+    (``pasco_tpu/models/dense_unet.py:322-338``)."""
+    frac = torch.rand((), generator=generator, device=pm.device) * rate
+    keep = torch.rand(pm.shape, generator=generator, device=pm.device) < 1.0 - frac
+    return pm & keep
+
+
 def scatter_max_rows(f: torch.Tensor, flat_idx: torch.Tensor, n_rows: int,
                      neg: float) -> torch.Tensor:
     """Per-channel scatter-max of point rows ``f [P, C]`` into an

@@ -1,7 +1,9 @@
-"""Device-time breakdown of the port's flagship forward on one GPU.
+"""Device-time breakdown of the port's flagship forward, or of one train
+step, on one GPU.
 
 Usage:
     python scripts_torch/profile_forward.py [--seed 0] [--out build/profile]
+    python scripts_torch/profile_forward.py --train [--seed 0] [--out build/profile]
 
 One synthetic scan (drawn as ``chip_smoke.py`` draws them) goes through
 ``PaSCoConfig()`` at n_infers=1 with seeded random init, after two
@@ -18,7 +20,24 @@ warm-ups.  Prints
    convolutions, GEMMs, other torch kernels) and the top kernels.
 
 Writes ``forward_profile.json`` (all of the above) and the Chrome trace
-``forward_trace.json`` into ``--out``.  Needs a CUDA device.
+``forward_trace.json`` into ``--out``.
+
+With ``--train``: ``PaSCoConfig()`` on the train box, seeded random init,
+one synthetic scene with targets (as ``chip_smoke.py`` draws them); after
+two warm-up steps it prints
+
+1. wall and device ms of one step without the profiler (median of 3) and
+   the peak device memory;
+2. device ms per phase of the step (CUDA events): forward + losses,
+   backward, running statistics + optimizer update;
+3. from a ``torch.profiler`` trace of one more step: kernel time by group
+   as above, the conv kernel's launches split into forward and ``dx`` (the
+   launch counters), the device time of the weight gradient's per-tap
+   products (``aten::mm`` calls whose contraction runs over the volume's
+   cells) and the top kernels.
+
+and writes ``train_profile.json`` and ``train_trace.json``.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -117,22 +136,139 @@ def kernel_table(trace_path: str) -> dict:
     }
 
 
+def weight_grad_ms(prof, min_rows: int = 100000) -> dict:
+    """Device ms and count of the ``aten::mm`` calls that contract over at
+    least ``min_rows`` rows: the weight gradient's per-tap products."""
+    ms, n = 0.0, 0
+    for evt in prof.key_averages(group_by_input_shape=True):
+        shapes = evt.input_shapes
+        if evt.key != "aten::mm" or not shapes or len(shapes[0]) != 2:
+            continue
+        if shapes[0][1] >= min_rows:
+            dev_us = getattr(evt, "device_time_total", None)
+            if dev_us is None:
+                dev_us = evt.cuda_time_total
+            ms += dev_us / 1e3
+            n += evt.count
+    return {"ms": ms, "calls": n}
+
+
+def train_profile(args) -> None:
+    """The ``--train`` mode (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import train_scenes
+    from pasco_tpu.core.config import PaSCoConfig
+    from pasco_torch import kernels
+    from pasco_torch.models.norm import commit_batch_stats
+    from pasco_torch.models.unet import build_net, scene_to_model_input
+    from pasco_torch.training import step as tstep
+    from pasco_torch.training.loop import train_config
+    from pasco_tpu.data.semantic_kitti.params import CLASS_FREQUENCIES
+
+    dev = torch.device("cuda", 0)
+    cfg = train_config(PaSCoConfig())
+    (col,) = train_scenes(PaSCoConfig(), 1, seed=args.seed)
+    inp = scene_to_model_input(col, dev)
+    tgt = tstep.targets_to_device(col.targets, dev)
+    lw = {s: torch.as_tensor(v, device=dev)
+          for s, v in tstep.labelweights_for(cfg, CLASS_FREQUENCIES).items()}
+    cw = torch.as_tensor(tstep.class_weight_vector(
+        cfg.model.n_classes, cfg.loss.no_object_weight), device=dev)
+    net = build_net(cfg)
+    net.reset_parameters(torch.Generator().manual_seed(args.seed))
+    state = tstep.create_train_state(net.to(dev), cfg)
+
+    def step():
+        tstep.train_step(state, inp, tgt, lw, cw, cfg, args.seed)
+
+    def phases() -> dict:
+        """Device ms of the step's phases, as ``train_step`` runs them."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        net.train()
+        for p in state.opt.params.values():
+            p.grad = None
+        gen = tstep.step_generator(args.seed, state.step, dev)
+        ev[0].record()
+        total, _ = tstep.compute_losses(net, inp, tgt, lw, cw, cfg, gen)
+        ev[1].record()
+        total.backward()
+        ev[2].record()
+        commit_batch_stats(net)
+        state.opt.step({k: p.grad for k, p in state.opt.params.items()})
+        state.step += 1
+        ev[3].record()
+        ev[3].synchronize()
+        return {"forward + losses": ev[0].elapsed_time(ev[1]),
+                "backward": ev[1].elapsed_time(ev[2]),
+                "running stats + optimizer": ev[2].elapsed_time(ev[3])}
+
+    res = {}
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, devs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        devs.append(device_ms(step))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    res["wall_ms"] = statistics.median(walls)
+    res["device_ms"] = statistics.median(devs)
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["phases_ms"] = phases()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    res["launches"] = dict(kernels.LAUNCHES)
+    res["weight_grad"] = weight_grad_ms(prof)
+    trace = os.path.join(args.out, "train_trace.json")
+    prof.export_chrome_trace(trace)
+    res.update(kernel_table(trace))
+
+    print(f"train step: wall {res['wall_ms']:.3f} ms, device {res['device_ms']:.3f} ms, "
+          f"peak {res['peak_gb']:.3f} GB")
+    print("device ms per phase (CUDA events):")
+    for k, v in res["phases_ms"].items():
+        print(f"  {k:28s} {v:9.3f}")
+    print(f"profiled step: kernel time {res['kernel_ms']:.3f} ms over a device span of "
+          f"{res['span_ms']:.3f} ms ({100 * res['kernel_ms'] / res['span_ms']:.1f}% busy); "
+          f"launches {res['launches']}")
+    for k, v in res["groups"].items():
+        print(f"  {k:24s} {v['ms']:9.3f} ms  {100 * v['ms'] / res['kernel_ms']:5.1f}%  "
+              f"{v['launches']} launches")
+    print(f"  weight-gradient per-tap products (in GEMM): {res['weight_grad']['ms']:.3f} ms "
+          f"in {res['weight_grad']['calls']} calls")
+    print("top kernels:")
+    for t in res["top"]:
+        print(f"  {t['ms']:9.3f} ms  {t['launches']:4d}  {t['name']}")
+    with open(os.path.join(args.out, "train_profile.json"), "w") as fh:
+        json.dump(res, fh, indent=1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step instead of one forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward.py: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(args.out, exist_ok=True)
+    if args.train:
+        train_profile(args)
+        return
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import make_scans
     from pasco_tpu.core.config import PaSCoConfig
     from pasco_torch.models.unet import build_net
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
     cfg = PaSCoConfig()
     (_, inp), = make_scans(cfg, 1, dev, seed=args.seed)

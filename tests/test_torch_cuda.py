@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes (tile edges in x, z and y, both conv tile geometries) and
-every channel width of the flagship path, and the whole forward with the
-kernels against the plain forward on the CPU.
+every channel width of the flagship path, the differentiable training
+conv's gradients likewise, and the whole forward and one whole train step
+with the kernels against the plain versions on the CPU.
 
 Marked ``cuda``; each test skips without a CUDA device.  This file imports
 no JAX, so it runs where JAX is absent:
@@ -66,6 +67,33 @@ def test_masked_conv3_matches_plain(dev, shape, ci, co):
     for kw in (dict(bias=b, affine=aff, relu_in=True, skip=skip, relu_out=True), {}):
         _check(conv.masked_conv3(x, m, w, **kw), conv.masked_conv3_plain(x, m, w, **kw), m)
     assert kernels.LAUNCHES["masked_conv3"] == before + 2
+
+
+@pytest.mark.parametrize("shape", [(5, 12, 37), (6, 4, 20), (3, 32, 16)])
+@pytest.mark.parametrize("ch", [64, 128, 256])
+def test_masked_conv3_fn_grads_match_plain(dev, shape, ch):
+    """MaskedConv3Fn (kernel forward and dx, plain dw and db) against
+    autograd of ``masked_conv3_plain``, at every residual/refiner width."""
+    g = _gen()
+    m = _mask(g, dev, shape, 0.4)
+    x = _randn(g, dev, *shape, ch)
+    w = _randn(g, dev, 27, ch, ch, scale=(27 * ch) ** -0.5).float()
+    b = torch.randn(ch, generator=g).to(dev) * 0.1
+    dy = _randn(g, dev, *shape, ch)
+    before = kernels.LAUNCHES["conv3_dx"]
+    out = []
+    for fn in (lambda *a: conv.MaskedConv3Fn.apply(*a, None), conv.masked_conv3_plain):
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+        y = fn(xs, m, ws, bs)
+        y.backward(dy)
+        out.append((y.detach(), xs.grad, ws.grad, bs.grad))
+    assert kernels.LAUNCHES["conv3_dx"] == before + 1
+    (y, gx, gw, gb), (yr, gxr, gwr, gbr) = out
+    _check(y, yr, m)
+    _check(gx, gxr, m)
+    every = torch.ones((27, ch), dtype=torch.bool, device=dev)
+    _check(gw, gwr, every)
+    _check(gb, gbr, every[0])
 
 
 @pytest.mark.parametrize("ci,co", [(64, 128), (128, 256), (256, 256)])
@@ -169,3 +197,12 @@ def test_forward_matches_cpu_plain(dev):
     q_got = got.predictor.query_logits.float().cpu().numpy()
     qmag = max(np.abs(q_ref).max(), 1.0)
     assert np.abs(q_ref - q_got).max() <= 0.02 * qmag + 0.125
+
+
+def test_train_step_matches_cpu_plain(dev):
+    """One train step at ``flagship_narrow_config(n_infers=1)`` with the
+    kernels against the plain versions on the CPU (bounds at
+    ``chip_smoke.narrow_step_check``)."""
+    from chip_smoke import narrow_step_check
+
+    narrow_step_check(dev)

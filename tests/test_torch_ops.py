@@ -386,3 +386,134 @@ def test_stream_extract_matches_pallas_interpret():
     assert set(got) == set(ref)
     for k in got:
         np.testing.assert_array_equal(got[k], ref[k])
+
+
+# --------------------------------------------------------------------------
+# training: MaskedConv3Fn (the port of packed_conv_trainable)
+# --------------------------------------------------------------------------
+
+
+def _train_conv_inputs(seed, X=16, Z=8, Y=32, C=4, D=4):
+    r = np.random.RandomState(seed)
+    x = r.randn(X, Z, Y, C).astype(np.float32)
+    mask = r.rand(X, Z, Y) > 0.5
+    mask[8:] = False
+    w = (r.randn(27, C, D) * 0.1).astype(np.float32)
+    b = (r.randn(D) * 0.1).astype(np.float32)
+    g = r.randn(X, Z, Y, D).astype(np.float32)
+    return x, mask, w, b, g
+
+
+def _port_grads(fn, x, mask, w, b, g):
+    xt, wt, bt = (T(a).requires_grad_() for a in (x, w, b))
+    y = fn(xt, T(mask), wt, bt)
+    (y * T(g)).sum().backward()
+    return y.detach().numpy(), xt.grad.numpy(), wt.grad.numpy(), bt.grad.numpy()
+
+
+def test_masked_conv3_fn_matches_packed_conv_trainable():
+    """Forward and x/w/b gradients of MaskedConv3Fn against the custom-VJP
+    Pallas conv (interpret mode), for a loss that reads mask-valid cells
+    (the packed path's contract), compared at mask-valid cells; dx is
+    exactly zero elsewhere."""
+    from pasco_tpu.ops.pallas_conv import packed_conv_trainable
+    from pasco_torch.ops.conv import MaskedConv3Fn
+
+    x, mask, w, b, g = _train_conv_inputs(12)
+    gm = np.where(mask[..., None], g, 0).astype(np.float32)
+
+    def loss(x_, w_, b_):
+        y = packed_conv_trainable(x_, w_, b_, jnp.asarray(mask), True, None)
+        return jnp.sum(y * jd.pack_z2(jnp.asarray(gm))), y
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, y_ref), (dx, dw, db) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+            jd.pack_z2(jnp.asarray(x)), jnp.asarray(w), jnp.asarray(b))
+    y, gx, gw, gb = _port_grads(
+        lambda *a: MaskedConv3Fn.apply(*a, None), x, mask, w, b, gm)
+    valid = np.broadcast_to(mask[..., None], y.shape)
+    close_f32(y, np.where(valid, np.asarray(jd.unpack_z2(y_ref)), 0), valid)
+    close_f32(gx, np.asarray(jd.unpack_z2(dx)), np.broadcast_to(mask[..., None], gx.shape))
+    close_f32(gw, dw, np.ones(gw.shape, bool))
+    close_f32(gb, db, np.ones(gb.shape, bool))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_masked_conv3_fn_matches_plain_autograd(bias):
+    """Against autograd through ``masked_conv3_plain``: checks the tap flip
+    of the data gradient and the per-tap weight gradient (ragged extents,
+    Ci != Co); ``bias=None`` gives no bias gradient."""
+    from pasco_torch.ops.conv import MaskedConv3Fn, masked_conv3_plain
+
+    x, mask, w, b, g = _train_conv_inputs(13, X=5, Z=6, Y=7, C=3, D=5)
+    plain = lambda x_, m, w_, b_: masked_conv3_plain(x_, m, w_, b_ if bias else None)  # noqa: E731
+    fn = lambda x_, m, w_, b_: MaskedConv3Fn.apply(x_, m, w_, b_ if bias else None, None)  # noqa: E731
+    ref = _port_grads(plain, x, mask, w, b, g) if bias else None
+    if not bias:
+        xt, wt, bt = (T(a).requires_grad_() for a in (x, w, b))
+        (plain(xt, T(mask), wt, bt) * T(g)).sum().backward()
+        ref = (None, xt.grad.numpy(), wt.grad.numpy(), None)
+    xt, wt, bt = (T(a).requires_grad_() for a in (x, w, b))
+    y = fn(xt, T(mask), wt, bt)
+    (y * T(g)).sum().backward()
+    valid = np.broadcast_to(mask[..., None], xt.shape)
+    close_f32(xt.grad.numpy(), ref[1], valid)
+    close_f32(wt.grad.numpy(), ref[2], np.ones(w.shape, bool))
+    if bias:
+        close_f32(bt.grad.numpy(), ref[3], np.ones(b.shape, bool))
+    else:
+        assert bt.grad is None
+
+
+# --------------------------------------------------------------------------
+# training: cap, dropout, differentiable extraction
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cap", [50, 400, 5000])
+def test_cap_keep_gumbel_same_keep_set(cap):
+    """The same Gumbel noise gives the reference's keep set, with the cap
+    binding (50, 400) and not (5000)."""
+    r = np.random.RandomState(14)
+    keep = r.rand(10, 8, 12) < 0.6
+    score = (r.rand(10, 8, 12) * r.choice([0.0, 1.0, 5.0], (10, 8, 12))).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    ref = np.asarray(jd.cap_keep_gumbel(jnp.asarray(keep), jnp.asarray(score), cap, key))
+    noise = np.asarray(jax.random.gumbel(key, keep.shape, jnp.float32))
+    got = td.cap_keep_gumbel(T(keep), T(score), cap, noise=T(noise)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.sum() <= max(cap + 5, 0) or got.sum() == keep.sum()
+    if cap < keep.sum():
+        g = torch.Generator().manual_seed(0)
+        drawn = td.cap_keep_gumbel(T(keep), T(score), cap, generator=g)
+        assert abs(int(drawn.sum()) - cap) <= 5 and not (drawn & ~T(keep)).any()
+
+
+def test_point_dropout_drops_at_most_rate():
+    pm = torch.arange(4000) < 3000
+    g = torch.Generator().manual_seed(0)
+    out = td.point_dropout(pm, 0.05, g)
+    assert not (out & ~pm).any()
+    assert 0.9 * 3000 <= int(out.sum()) <= 3000
+
+
+def test_extract_sparse_train_rows_and_gradient():
+    """Same coords and payload rows as the reference's XLA extraction (cap
+    binding), and the gradient lands on the kept cells' payload rows."""
+    r = np.random.RandomState(15)
+    X, Z, Y, E, cap = 8, 6, 12, 3, 200
+    keep = r.rand(X, Z, Y) < 0.4
+    pay = r.randn(X, Z, Y, E).astype(np.float32)
+    gmin = np.array([-8, 16, -4], np.int32)
+    grid, ex = jd.extract_sparse(pay, keep, JBox.create(gmin, (2 * X, 2 * Y, 2 * Z)), 2,
+                                 cap, extra=pay, axis_order="xzy")
+    pt = T(pay).requires_grad_()
+    coords, valid, vals = td.extract_sparse_train(
+        T(keep), Box.create(T(gmin), (2 * X, 2 * Y, 2 * Z)), 2, cap, pt)
+    np.testing.assert_array_equal(coords.numpy(), np.asarray(grid.coords))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(grid.mask))
+    np.testing.assert_array_equal(vals.detach().numpy(), np.asarray(ex))
+    vals.sum().backward()
+    first = np.cumsum(keep.reshape(-1)).reshape(keep.shape) <= cap
+    np.testing.assert_array_equal(pt.grad.numpy(), np.broadcast_to(
+        (keep & first)[..., None], pay.shape).astype(np.float32))

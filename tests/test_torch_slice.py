@@ -89,9 +89,10 @@ def test_unported_modes_raise():
     cfg = tiny_f32_config()
     net = build_net(cfg)
     inp = ModelInput(*(torch.from_numpy(np.array(a)) for a in make_input(cfg, rng=1)))
-    for kw in (dict(train=True), dict(mc_dropout=True)):
+    for mode in (net.eval, net.train):
+        mode()
         with pytest.raises(NotImplementedError):
-            net(inp, **kw)
+            net(inp, mc_dropout=True)
 
 
 def test_scene_inference_on_synthetic_scan():
