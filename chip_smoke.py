@@ -14,12 +14,22 @@
    each with its median time and the plain version's (CUDA events).  The
    up-preamble runs a second case whose bound comes from the deconv path,
    and shows that a plain run with a broken deconv would fail it;
+   the column-sparse conv (row 7) runs through its own entry point on the
+   scan's s1 occupancy against cuDNN in f32 (:func:`column_conv_phase`);
 4. drives the flagship forward (``PaSCoConfig()``, n_infers=1, full
    widths, seeded random init) on 3 synthetic scans after one warm-up,
    checks finite outputs of the expected shapes, kept voxels at every
-   scale and that every kernel was launched, and prints scans/s and
-   device ms/scan;
-5. runs ``run_scene_inference`` on one scan;
+   scale and that every kernel was launched, and prints scans/s,
+   device ms/scan and peak device memory; the fused featurizer (row 8)
+   then runs through its own entry point on the first scan's points
+   against the model's featurizer chain (:func:`featurizer_phase`);
+5. runs ``run_scene_inference`` and the ``Evaluator`` on one scan;
+   then the same for the MIMO ensemble (n_infers=3, the slice's main
+   path): 3 scans, each 3 augmented views of one scene, through the
+   forward (kept voxels for every subnet, at least 60 ``masked_conv3``
+   and 12 ``stream_extract`` launches per forward), then
+   ``run_scene_inference`` (4 outputs) and the ``Evaluator`` with the
+   PQ, SSC mIoU and ECE of every output;
 6. training, kernel phase: the differentiable conv of every residual
    block (``MaskedConv3Fn``: forward and data gradient on the conv kernel)
    at the train box (256, 256, 32), f=64, on the scan's s1 occupancy and a
@@ -38,18 +48,22 @@
    ``pasco_torch.training.loop.train`` on synthetic scenes with targets;
    prints s/step, device ms/step, peak device memory, ``total_loss`` and
    ``grad_norm`` per step and the launches per step, and requires finite
-   losses, ``grad_norm > 0``, running statistics that moved, and at
-   least the residual-block conv count of ``masked_conv3`` and
-   ``conv3_dx`` launches per step.
+   losses, ``grad_norm > 0``, running statistics that moved, and per step
+   two ``masked_conv3`` launches (remat reruns the forward) and one
+   ``conv3_dx`` launch for every residual-block and refiner conv;
+9. training, MIMO: the same at n_infers=3 on a distinct scan per subnet:
+   one sem-only step (``is_predict_panop=False``), one warm-up and 2
+   timed panoptic steps.
 
-Prints a JSON line with the kernels' numbers, then as its last line
+Prints the whole run's wall time and a JSON line with the kernels'
+numbers (launches from the MIMO forward, the MIMO train steps and the two
+entry-point phases), then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
 result line); so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import os
@@ -65,6 +79,8 @@ import torch
 TOL_REL, TOL_ABS = 2e-2, 2e-2
 N_SCANS = 3
 N_TRAIN_STEPS = 3
+MIMO_S = 3                 # the reference's MIMO headline config (bench.py:54)
+N_MIMO_TRAIN_STEPS = 2
 # residual-block 3^3 convs per forward: 4 encoder + 3 decoder stages x
 # 3 blocks x 2 convs
 RES_CONVS = 42
@@ -91,27 +107,39 @@ def time_ms(fn, reps=5):
     return statistics.median(samples)
 
 
-def make_scans(cfg, n, device, seed=0):
-    """Synthetic scans with the eval augmentation (as bench.py draws them)."""
+def eval_scene(cfg, rng, n_points=120000, max_angle=30.0):
+    """One synthetic scan collated for inference: ``n_infers`` views of it
+    under distinct eval augmentations (as bench.py draws them; the
+    reference's validation split, ``pasco_tpu/data/semantic_kitti/
+    dataset.py:464-489``)."""
     from pasco_tpu.data.semantic_kitti.collate import collate
     from pasco_tpu.data.semantic_kitti.dataset import process_scene
     from pasco_tpu.data.synthetic import make_scene
     from pasco_tpu.data.transform_utils import generate_random_transformation
+
+    scene = make_scene(
+        rng, scene_size=cfg.scene.scene_size,
+        n_points=min(cfg.capacity.num_points, n_points),
+        point_feat_dim=cfg.model.in_channels - 6,
+    )
+    views = []
+    for _ in range(cfg.model.n_infers):
+        T = generate_random_transformation(
+            rng, max_angle=max_angle, scale_range=0.0,
+            max_translation=(0.2, 0.2, 0.1),
+        )
+        views.append(process_scene(scene, T, rng))
+    return collate(views, cfg, rng=rng)
+
+
+def make_scans(cfg, n, device, seed=0):
+    """``n`` synthetic scans (:func:`eval_scene`) and their model inputs."""
     from pasco_torch.models.unet import scene_to_model_input
 
     rng = np.random.RandomState(seed)
     out = []
     for _ in range(n):
-        scene = make_scene(
-            rng, scene_size=cfg.scene.scene_size,
-            n_points=min(cfg.capacity.num_points, 120000),
-            point_feat_dim=cfg.model.in_channels - 6,
-        )
-        T = generate_random_transformation(
-            rng, max_angle=30.0, scale_range=0.0,
-            max_translation=(0.2, 0.2, 0.1),
-        )
-        col = collate([process_scene(scene, T, rng)], cfg, rng=rng)
+        col = eval_scene(cfg, rng)
         out.append((col, scene_to_model_input(col, device)))
     return out
 
@@ -291,6 +319,103 @@ def kernel_phases(cfg, inp, gen):
     return rows
 
 
+def column_conv_phase(occ1, dev):
+    """Row 7 through its entry point, ``block_sparse_conv3``, on the scan's
+    s1 occupancy as ``[X, Y, Z]``: f32 ``[X, Y, Z, 64]`` input (masked),
+    ``[27, 64, 64]`` weight and a bias, once with every 8x8 column listed and
+    once with the capacity at half the occupied columns.  The plain version
+    is cuDNN ``conv3d`` in f32 (TF32 off) zeroed outside the visited
+    columns.  Bound ``1e-3 * max|ref| + 1e-3`` at visited cells; elsewhere
+    both are exactly the bias at mask cells and 0 at the others.  Returns
+    the JSON row."""
+    from pasco_torch import kernels
+    from pasco_torch.ops import column_conv as cc
+
+    mask = occ1.permute(0, 2, 1).contiguous()
+    X, Y, Z = mask.shape
+    c = 64
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((X, Y, Z, c), generator=g, device=dev)
+    x = torch.where(mask[..., None], x, torch.zeros((), device=dev))
+    w = torch.randn((27, c, c), generator=g, device=dev) * (27 * c) ** -0.5
+    b = torch.rand((c,), generator=g, device=dev) * 0.2 - 0.1
+    n_cols = -(-X // 8) * -(-Y // 8)
+    n_occ = int(cc.active_columns(mask, n_cols)[1])
+    cases = [(f"all {n_cols} columns", n_cols), (f"{n_occ // 2} of {n_occ} occupied columns",
+                                                  n_occ // 2)]
+    kernels.reset_launches()
+    outs = [cc.block_sparse_conv3(x, w, mask, cap, bias=b) for _, cap in cases]
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["column_conv3"]
+    errs = []
+    for (label, cap), got in zip(cases, outs):
+        ref = cc.block_sparse_conv3_plain(x, w, mask, cap, bias=b)
+        ids, n = cc.active_columns(mask, cap)
+        vis = cc.visited_cells(ids, n, X, Y)[..., None].expand(X, Y, Z)
+        err = (got - ref)[vis].abs().max().item()
+        bound = 1e-3 * ref[vis].abs().max().item() + 1e-3
+        rest = torch.where(mask[..., None], b, torch.zeros((), device=dev))[~vis]
+        print(f"check column_conv3 ({X}, {Y}, {Z}, {c}), {label}: visited cells "
+              f"{int(vis.sum())} of {vis.numel()}, max|d| {err:.4g}, bound {bound:.4g}",
+              flush=True)
+        if not err <= bound:
+            raise AssertionError(f"column_conv3 {label}: max|d| {err} > {bound}")
+        if not (torch.equal(got[~vis], rest) and torch.equal(ref[~vis], rest)):
+            raise AssertionError(f"column_conv3 {label}: unvisited columns not conv-free")
+        errs.append(err)
+    times = [(time_ms(lambda: cc.block_sparse_conv3(x, w, mask, cap, bias=b)),
+              time_ms(lambda: cc.block_sparse_conv3_plain(x, w, mask, cap, bias=b)))
+             for _, cap in cases]
+    for (label, _), (ms, plain_ms) in zip(cases, times):
+        print(f"kernel column_conv3, {label}: {ms:.3f} ms vs plain {plain_ms:.3f} ms",
+              flush=True)
+    return dict(name="column_conv3", source="pasco_torch/csrc/column_conv3.cu",
+                replaces="pasco_tpu/ops/pallas_conv.py:1348", max_abs_err=max(errs),
+                launches=launches, ms=times[0][0], plain_ms=times[0][1])
+
+
+def featurizer_phase(cfg, inp, net):
+    """Row 8 through its entry point, ``featurizer_fused``, on the scan's
+    points: the seeded net's point-MLP features (bf16) and ``enc_in``
+    weight, and a seeded random bias (the net's is zero at init, which
+    would leave the kernel's bias read unchecked).  The plain version is
+    the model's featurizer chain.
+    Occupancy identical; values at occupied cells within the bf16 bound,
+    exact zeros elsewhere.  Returns the JSON row."""
+    from pasco_torch import kernels
+    from pasco_torch.core.sparse import Box
+    from pasco_torch.ops import featurizer as fz
+
+    box = Box.create(inp.global_min, cfg.scene.box_extent)
+    ex, ey, ez = box.extent
+    with torch.no_grad():
+        f = net.point_mlp(inp.point_feats, inp.point_mask)
+    rel = inp.point_coords[:, 1:] - box.minimum[None]
+    in_box = inp.point_mask & (rel >= 0).all(-1) & (rel[:, 0] < ex) \
+        & (rel[:, 1] < ey) & (rel[:, 2] < ez)
+    w = net.enc_in.kernel[0].detach()
+    g = torch.Generator(device=w.device).manual_seed(8)
+    b = torch.rand((w.shape[1],), generator=g, device=w.device) * 0.2 - 0.1
+    args = (f, rel, in_box, w, b, box.extent, torch.bfloat16)
+    kernels.reset_launches()
+    x, occ = fz.featurizer_fused(*args)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["featurizer"]
+    xr, occr = fz.featurizer_fused_plain(*args)
+    if not torch.equal(occ, occr):
+        raise AssertionError("featurizer: occupancy differs")
+    print(f"featurizer: {int(in_box.sum())} points in {int(occ.sum())} cells, "
+          f"F={f.shape[1]}, C={x.shape[-1]}", flush=True)
+    err, _ = _compare("featurizer", x, xr, occ)
+    row = dict(name="featurizer", source="pasco_torch/csrc/featurizer.cu",
+               replaces="pasco_tpu/ops/pallas_featurizer.py:214", max_abs_err=err,
+               launches=launches, ms=time_ms(lambda: fz.featurizer_fused(*args)),
+               plain_ms=time_ms(lambda: fz.featurizer_fused_plain(*args)))
+    print(f"kernel featurizer: {row['ms']:.3f} ms vs plain {row['plain_ms']:.3f} ms, "
+          f"launches {launches}", flush=True)
+    return row
+
+
 def check_output(cfg, out):
     m, cap = cfg.model, cfg.capacity
     S, C, Q = m.n_infers, m.n_classes, m.transformer.num_queries
@@ -314,16 +439,31 @@ def check_output(cfg, out):
     kept = {s: int(out.sem_grids[s].mask.sum()) for s in (1, 2, 4)}
     if min(kept.values()) <= 0:
         raise AssertionError(f"no kept voxels at some scale: {kept}")
-    return kept
+    # every subnet keeps voxels at every scale of its panoptic grids
+    sub = {s: out.panop_grids[s].mask.sum(-1).tolist() for s in (1, 2, 4)}
+    if min(min(v) for v in sub.values()) <= 0:
+        raise AssertionError(f"a subnet kept no voxels at some scale: {sub}")
+    return kept, sub
 
 
-def forward_phase(cfg, scans, net):
+def forward_launch_floor(S):
+    """Kernel launches per inference forward at ``S`` subnets: the 42
+    residual-block convs plus 2 refiner convs per scale and subnet, the
+    enc_s2/s4/s8 downs, the dec_s4/s2/s1 preambles, and one extraction per
+    decoder scale plus one per scale and subnet."""
+    return {"masked_conv3": RES_CONVS + 6 * S, "down2_fused": 3, "up_preamble": 3,
+            "stream_extract": 3 + 3 * S}
+
+
+def forward_phase(cfg, scans, net, label="forward"):
     """Warm-up + timed forwards; returns launches of the timed run."""
     from pasco_torch import kernels
 
+    dev = scans[0][1].point_feats.device
     with torch.no_grad():
         check_output(cfg, net(scans[0][1]))          # warm-up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
         dev_ms = []
         t0 = time.perf_counter()
@@ -335,16 +475,14 @@ def forward_phase(cfg, scans, net):
             b.record()
             b.synchronize()
             dev_ms.append(a.elapsed_time(b))
-            kept = check_output(cfg, out)
+            kept, sub = check_output(cfg, out)
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-    print(f"forward: {len(scans) / wall:.4f} scans/s, device "
-          f"{statistics.mean(dev_ms):.2f} ms/scan, "
-          f"kept {kept}, launches {launches}", flush=True)
-    # Per forward the path runs at least 42 res-block/refiner convs, the
-    # enc_s2/s4 downs, the dec_s2/s1 preambles and 4 stream extractions.
-    floor = {"masked_conv3": 42, "down2_fused": 2, "up_preamble": 2,
-             "stream_extract": 4}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"{label} (n_infers={cfg.model.n_infers}): {len(scans) / wall:.4f} scans/s, "
+          f"device {statistics.mean(dev_ms):.2f} ms/scan, peak {peak:.3f} GB, "
+          f"kept {kept}, kept per subnet {sub}, launches {launches}", flush=True)
+    floor = forward_launch_floor(cfg.model.n_infers)
     short = {k: launches[k] for k in floor if launches[k] < floor[k] * len(scans)}
     if short:
         raise AssertionError(f"kernels of the main path launched too rarely: {short}")
@@ -352,7 +490,9 @@ def forward_phase(cfg, scans, net):
 
 
 def train_scenes(cfg, n, seed=0):
-    """Synthetic training scenes with targets, collated at the train box."""
+    """Synthetic training scenes with targets, collated at the train box:
+    a distinct scan per subnet, as the reference's training split draws
+    them (``pasco_tpu/data/semantic_kitti/dataset.py:464-489``)."""
     from pasco_tpu.data.semantic_kitti.collate import collate
     from pasco_tpu.data.semantic_kitti.dataset import process_scene
     from pasco_tpu.data.synthetic import make_scene
@@ -362,12 +502,15 @@ def train_scenes(cfg, n, seed=0):
     rng = np.random.RandomState(seed)
     out = []
     for _ in range(n):
-        scene = make_scene(
-            rng, scene_size=cfg.scene.scene_size,
-            n_points=min(cfg.capacity.num_points, 120000),
-            point_feat_dim=cfg.model.in_channels - 6,
-        )
-        out.append(collate([process_scene(scene, None, rng)], tcfg, rng=rng))
+        views = []
+        for _ in range(cfg.model.n_infers):
+            scene = make_scene(
+                rng, scene_size=cfg.scene.scene_size,
+                n_points=min(cfg.capacity.num_points, 120000),
+                point_feat_dim=cfg.model.in_channels - 6,
+            )
+            views.append(process_scene(scene, None, rng))
+        out.append(collate(views, tcfg, rng=rng))
     return out
 
 
@@ -429,8 +572,8 @@ def train_conv_phase(cfg, col, gen, dev):
                 ms=t["dx"], plain_ms=t["dx_plain"])
 
 
-def narrow_step_check(dev):
-    """One train step at ``flagship_narrow_config(n_infers=1)`` with the
+def narrow_step_check(dev, n_infers=1):
+    """One train step at ``flagship_narrow_config(n_infers)`` with the
     kernels on the card (bf16) against the same step with the plain
     versions on the CPU, in bf16 and in f32, from the same weights and
     inputs.  The decoder caps are raised to the box's cell count, so the
@@ -453,7 +596,7 @@ def narrow_step_check(dev):
     from pasco_torch.models.unet import build_net, scene_to_model_input
     from pasco_torch.training import step as tstep
 
-    cfg = flagship_narrow_config(n_infers=1)
+    cfg = flagship_narrow_config(n_infers=n_infers)
     ex, ey, ez = cfg.scene.box_extent
     n = ex * ey * ez
     cfg = cfg.replace(
@@ -514,53 +657,113 @@ def narrow_step_check(dev):
                              f"median {med:.4g} vs {med_plain:.4g}, zero {zero:.3g}")
 
 
-def train_phase(cfg, cols, dev):
-    """The flagship train step through the trainer: one warm-up step, then
-    ``N_TRAIN_STEPS`` timed ones.  Returns the launches per step."""
+def _check_steps(label, recs):
+    for r in recs:
+        print(f"{label} step {r['step']}: is_predict_panop {r['is_predict_panop']}, "
+              f"total_loss {r['total_loss']:.6g}, grad_norm {r['grad_norm']:.6g}, "
+              f"{r['step_s']:.4f} s, device {r['device_ms']:.2f} ms", flush=True)
+    if not all(np.isfinite(r["total_loss"]) and np.isfinite(r["grad_norm"])
+               and r["grad_norm"] > 0 for r in recs):
+        raise AssertionError(f"{label}: non-finite loss or gradient: {recs}")
+
+
+def _check_conv_launches(label, launches, convs):
+    """``convs`` differentiable convs per step: each runs its forward twice
+    (remat reruns it in backward) and its data gradient once."""
+    floor = {"masked_conv3": 2 * convs, "conv3_dx": convs}
+    short = {k: launches[k] for k in floor if launches[k] < floor[k]}
+    if short:
+        raise AssertionError(f"{label}: conv kernels launched too rarely per step: {short}")
+
+
+def train_phase(cfg, cols, dev, n_sem=0, label="train"):
+    """The flagship train step through the trainer: ``n_sem`` sem-only
+    steps (``is_predict_panop=False``), one warm-up step, then the timed
+    ones on the remaining scenes.  Returns the launches of the timed
+    steps."""
     from pasco_torch import kernels
     from pasco_torch.models.norm import BatchNorm
     from pasco_torch.training.loop import train
 
-    state = train(cfg, cols[:1], device=dev, log=None)       # warm-up
+    S = cfg.model.n_infers
+    state = None
+    if n_sem:
+        kernels.reset_launches()
+        state = train(cfg, cols[:n_sem], device=dev, log=None, pretrain_sem_steps=n_sem)
+        launches = {k: v / n_sem for k, v in kernels.LAUNCHES.items()}
+        recs = state.history
+        _check_steps(f"{label} sem-only", recs)
+        print(f"{label} sem-only: launches per step {launches}", flush=True)
+        if any(r["is_predict_panop"] for r in recs):
+            raise AssertionError(f"{label}: the pretraining steps predicted panoptic")
+        _check_conv_launches(f"{label} sem-only", launches, RES_CONVS)
+    n_timed = len(cols) - n_sem - 1
+    state = train(cfg, cols[n_sem:n_sem + 1], device=dev, log=None, state=state,
+                  pretrain_sem_steps=n_sem)                              # warm-up
     stats0 = {k: v.clone() for k, v in state.net.state_dict().items()
               if k.endswith((".mean", ".var"))}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    state = train(cfg, cols[1:], state=state, log=None)
+    state = train(cfg, cols[n_sem + 1:], state=state, log=None, pretrain_sem_steps=n_sem)
     wall = time.perf_counter() - t0
-    launches = {k: v / N_TRAIN_STEPS for k, v in kernels.LAUNCHES.items()}
+    launches = {k: v / n_timed for k, v in kernels.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    recs = state.history[1:]
-    for r in recs:
-        print(f"train step {r['step']}: total_loss {r['total_loss']:.6g}, grad_norm "
-              f"{r['grad_norm']:.6g}, {r['step_s']:.4f} s, device {r['device_ms']:.2f} ms",
-              flush=True)
-    print(f"train: {wall / N_TRAIN_STEPS:.4f} s/step (host clock), device "
+    recs = state.history[n_sem + 1:]
+    _check_steps(label, recs)
+    print(f"{label} (n_infers={S}): {wall / n_timed:.4f} s/step (host clock), device "
           f"{statistics.mean(r['device_ms'] for r in recs):.2f} ms/step, peak "
           f"{peak:.3f} GB, launches per step {launches}", flush=True)
-    if not all(np.isfinite(r["total_loss"]) and np.isfinite(r["grad_norm"])
-               and r["grad_norm"] > 0 for r in recs):
-        raise AssertionError(f"train: non-finite loss or gradient: {recs}")
+    if not all(r["is_predict_panop"] for r in recs):
+        raise AssertionError(f"{label}: a timed step skipped the panoptic losses")
     n_bn = sum(isinstance(m, BatchNorm) for m in state.net.modules())
     still = [k for k, v in stats0.items() if torch.equal(v, state.net.state_dict()[k])]
     if len(stats0) != 2 * n_bn or still:
-        raise AssertionError(f"train: running statistics did not move: {still[:5]}")
-    short = {k: launches[k] for k in ("masked_conv3", "conv3_dx")
-             if launches[k] < RES_CONVS}
-    if short:
-        raise AssertionError(f"train: conv kernels launched too rarely per step: {short}")
-    return {k: v for k, v in kernels.LAUNCHES.items()}
+        raise AssertionError(f"{label}: running statistics did not move: {still[:5]}")
+    _check_conv_launches(label, launches, RES_CONVS + 6 * S)
+    return dict(kernels.LAUNCHES)
+
+
+def scene_inference_phase(cfg, net, scan):
+    """``run_scene_inference`` on one scan (S + 1 outputs: the subnets,
+    then the ensemble) and the ``Evaluator`` against the scan's
+    labels; the summary's numbers must be finite (at random init they mean
+    nothing)."""
+    from pasco_torch.inference.pipeline import Evaluator, run_scene_inference
+
+    col, inp = scan
+    S = cfg.model.n_infers
+    res = run_scene_inference(net, inp, col, cfg)
+    n_seg = [len(o["segments_info"]) for o in res["outputs"]]
+    print(f"run_scene_inference (n_infers={S}): {len(n_seg)} outputs, {n_seg} panoptic "
+          f"segments, forward {res['inference_time']:.3f} s, ensemble "
+          f"{res['ensemble_time']:.3f} s", flush=True)
+    if len(res["outputs"]) != S + 1:
+        raise AssertionError(f"run_scene_inference: {len(res['outputs'])} outputs at S={S}")
+    ev = Evaluator(cfg)
+    t0 = time.perf_counter()
+    ev.add_scene(res, col.semantic_label_origin, col.instance_label_origin)
+    summary = ev.summary()
+    names = [f"subnet {i}" for i in range(S)] + ["ensemble"]
+    for name, s in zip(names, summary):
+        vals = {"PQ": s["pq_all"]["pq"], "SSC mIoU": s["ssc"]["iou_ssc_mean"],
+                "ECE": s["ssc"]["nonempty_ece"], "instance ECE": s["uncertainty"]["ins_ece"]}
+        print(f"evaluator {name}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()),
+              flush=True)
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"evaluator {name}: non-finite summary {vals}")
+    print(f"evaluator: {time.perf_counter() - t0:.3f} s for {len(summary)} outputs",
+          flush=True)
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pasco_tpu.core.config import PaSCoConfig
     from pasco_torch import kernels
-    from pasco_torch.inference.pipeline import run_scene_inference
     from pasco_torch.models.unet import build_net
 
     card = subprocess.run(
@@ -580,29 +783,42 @@ def main():
     scans = make_scans(cfg, N_SCANS, dev)
     gen = torch.Generator().manual_seed(0)
     rows = kernel_phases(cfg, scans[0][1], gen)
+    rows.append(column_conv_phase(scan_masks(cfg, scans[0][1])[1], dev))
 
     net = build_net(cfg)
     net.reset_parameters(torch.Generator().manual_seed(0))
     net = net.to(dev)
-    launches = forward_phase(cfg, scans, net)
+    forward_phase(cfg, scans, net)
+    rows.append(featurizer_phase(cfg, scans[0][1], net))
+    scene_inference_phase(cfg, net, scans[0])
+    del net, scans          # the MIMO forward's peak holds only its own state
+    torch.cuda.empty_cache()
 
-    res = run_scene_inference(net, scans[0][1], scans[0][0], cfg)
-    n_seg = [len(o["segments_info"]) for o in res["outputs"]]
-    print(f"run_scene_inference: {n_seg} panoptic segments, forward "
-          f"{res['inference_time']:.3f} s, ensemble {res['ensemble_time']:.3f} s",
-          flush=True)
+    # The MIMO ensemble: the slice's main path.
+    cfg3 = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=MIMO_S))
+    net3 = build_net(cfg3)
+    net3.reset_parameters(torch.Generator().manual_seed(0))
+    net3 = net3.to(dev)
+    scans3 = make_scans(cfg3, N_SCANS, dev, seed=1)
+    launches = forward_phase(cfg3, scans3, net3, "MIMO forward")
+    scene_inference_phase(cfg3, net3, scans3[0])
+    del net3, scans3
 
     train_cols = train_scenes(cfg, 1 + N_TRAIN_STEPS)
     dx_row = train_conv_phase(cfg, train_cols[0], gen, dev)
     narrow_step_check(dev)
-    train_launches = train_phase(cfg, train_cols, dev)
+    train_phase(cfg, train_cols, dev)
+    del train_cols
+    train_launches = train_phase(cfg3, train_scenes(cfg3, 2 + N_MIMO_TRAIN_STEPS, seed=2),
+                                 dev, n_sem=1, label="MIMO train")
 
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r.setdefault("launches", launches[r["name"]])
     dx_row["launches"] = train_launches["conv3_dx"]
     rows.append(dx_row)
     for r in rows:
         r["route"] = "cuda"
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

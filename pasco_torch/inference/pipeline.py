@@ -1,23 +1,30 @@
-"""Forward + MIMO ensembling + panoptic assembly for one scene
-(counterpart of ``pasco_tpu/inference/pipeline.py:41-145``).
+"""Forward + MIMO ensembling + panoptic assembly for one scene, and the
+metric accumulators over scenes (counterpart of
+``pasco_tpu/inference/pipeline.py:41-236``).
 
 The network runs on the tensors' device; everything after it is the
-reference's NumPy host code (``pasco_tpu.inference.{ensemble,panoptic}``),
-reused as it is.
+reference's NumPy host code (``pasco_tpu.inference.{ensemble,panoptic}``,
+``pasco_tpu.metrics``, ``prepare_mask_targets``), reused as it is.  The
+reference module imports JAX, so :class:`Evaluator` is restated here.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from pasco_tpu.core.config import PaSCoConfig
 from pasco_tpu.data.semantic_kitti.collate import CollatedScene
+from pasco_tpu.data.semantic_kitti.dataset import prepare_mask_targets
 from pasco_tpu.inference.ensemble import ensemble_panop, ensemble_sem_compl, ssc_confidence
 from pasco_tpu.inference.panoptic import _softmax, panoptic_inference
+from pasco_tpu.metrics.pq import (
+    PQStat, find_matched_segments, mask_labels_to_panoptic, pq_update)
+from pasco_tpu.metrics.ssc import SSCMetrics
+from pasco_tpu.metrics.uncertainty import UncertaintyMetrics
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -115,3 +122,69 @@ def run_scene_inference(forward_fn, inp, scene: CollatedScene,
         "inference_time": inference_time,
         "ensemble_time": ensemble_time,
     }
+
+
+class Evaluator:
+    """SSC, PQ and uncertainty accumulators over scenes for every output
+    of :func:`run_scene_inference` (subnets 0..S-1, then the ensemble), as
+    the reference's per-``i_infer`` metric dictionaries
+    (``net_panoptic_sparse.py:193-208``)."""
+
+    def __init__(self, cfg: PaSCoConfig):
+        self.cfg = cfg
+        n_out = cfg.model.n_infers + 1
+        self.ssc = [SSCMetrics(cfg.model.n_classes) for _ in range(n_out)]
+        self.pq = [PQStat() for _ in range(n_out)]
+        self.unc = [UncertaintyMetrics() for _ in range(n_out)]
+
+    def add_scene(self, results: Dict[str, object],
+                  semantic_label_origin: np.ndarray,   # canonical [X, Y, Z]
+                  instance_label_origin: np.ndarray) -> None:
+        """Score every output of one scene, uncertainty included, against
+        its canonical-frame labels."""
+        cfg = self.cfg
+        outputs = results["outputs"]
+        gt_labels, gt_mask_id = prepare_mask_targets(
+            semantic_label_origin, instance_label_origin, cfg.thing_ids)
+        gt_masks = gt_mask_id[None] == np.arange(len(gt_labels))[:, None, None, None]
+        gt_panoptic, gt_segments = mask_labels_to_panoptic(
+            gt_labels, gt_masks, cfg.thing_ids)
+        unknown = semantic_label_origin == 255
+        for i, o in enumerate(outputs):
+            pred_pan = o["panoptic_seg_dense"].copy()
+            gt_pan = gt_panoptic.copy()
+            pred_pan[unknown] = 0
+            gt_pan[unknown] = 0
+            pred_ids = set(np.unique(pred_pan).tolist())
+            gt_ids = set(np.unique(gt_pan).tolist())
+            pred_info = [s for s in o["segments_info"] if s["id"] in pred_ids]
+            gt_info = [s for s in gt_segments if s["id"] in gt_ids]
+            pq_update(self.pq[i], gt_info, pred_info, gt_pan, pred_pan, cfg.thing_ids)
+            sem_prob = o["sem_prob_dense"]
+            ssc_pred = sem_prob.argmax(0)
+            self.ssc[i].add_batch(ssc_pred, semantic_label_origin)
+            self.ssc[i].add_batch_ece(
+                o["ssc_confidence"], ssc_pred, sem_prob, semantic_label_origin,
+                inference_time=results["inference_time"])
+            matched = find_matched_segments(
+                gt_info, pred_info, gt_pan, pred_pan, threshold=0.5)
+            self.unc[i].compute_ece_panop(
+                pred_pan, pred_info, o["vox_confidence_dense"], matched,
+                gt_pan, gt_info, cfg.model.n_classes)
+
+    def summary(self) -> List[Dict[str, object]]:
+        """Per output: PQ over all, thing and stuff classes, per-class PQ,
+        the SSC statistics and the uncertainty statistics."""
+        thing_ids = self.cfg.thing_ids
+        out = []
+        for pq, ssc, unc in zip(self.pq, self.ssc, self.unc):
+            all_res, per_class = pq.pq_average(None, 0, thing_ids)
+            out.append({
+                "pq_all": all_res,
+                "pq_things": pq.pq_average(True, 0, thing_ids)[0],
+                "pq_stuff": pq.pq_average(False, 0, thing_ids)[0],
+                "per_class": per_class,
+                "ssc": ssc.get_stats(),
+                "uncertainty": unc.get_stats(),
+            })
+        return out

@@ -1,11 +1,12 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources in ``pasco_torch/csrc/*.cu`` have a plain C interface.  At
-first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/pasco_torch/<hash>/`` of the checkout (the hash
-covers the sources and flags, so an edit rebuilds) and loaded with
-``ctypes``.  Nothing here runs at import time: the CPU tests import every
-module on a machine without ``nvcc``.
+first use each is compiled by its own ``nvcc`` process for ``sm_90a``, all
+started together, and the objects are linked into one shared library under
+``build/pasco_torch/<hash>/`` of the checkout (the hash covers the sources
+and flags, so an edit rebuilds), loaded with ``ctypes``.  Nothing here
+runs at import time: the CPU tests import every module on a machine
+without ``nvcc``.
 
 Every pointer and the stream cross the boundary as ``ctypes.c_void_p``;
 each C entry returns ``cudaGetLastError()`` after its launch and
@@ -29,7 +30,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pasco_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
 P = ctypes.c_void_p
@@ -51,13 +52,17 @@ _SIGNATURES = {
     # keep, payload, n, E, cap, block_counts, block_offsets, vals, src,
     # valid, total, stream
     "pasco_stream_extract": [P, P, L, I, I, P, P, P, P, P, P, P],
+    # x, w, out, ids, n_active, X, Y, Z, C, D, capacity, stream
+    "pasco_column_conv3": [P] * 5 + [I] * 6 + [P],
+    # fs, ks, head, w, b, x, occ, P, F, C, dtype, stream
+    "pasco_featurizer": [P] * 7 + [I] * 4 + [P],
 }
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
 # launches its kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {
     "masked_conv3": 0, "conv3_dx": 0, "down2_fused": 0, "up_preamble": 0,
-    "stream_extract": 0,
+    "stream_extract": 0, "column_conv3": 0, "featurizer": 0,
 }
 
 _lock = threading.Lock()
@@ -94,16 +99,28 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libpasco_kernels.{os.getpid()}.so"
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    tag = os.getpid()
+    cus = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [out_dir / f"{s.stem}.{tag}.o" for s in cus]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True))
+             for cmd in ([_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(o), str(s)]
+                         for s, o in zip(cus, objs))]
+    failed = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    failed = [f for f in failed if f[2] != 0]
+    if not failed:
+        tmp = out_dir / f"libpasco_kernels.{tag}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if res.returncode == 0:
+            os.replace(tmp, lib_path)
+        else:
+            failed = [(cmd, res.stdout, res.returncode)]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(
+            f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}" for cmd, out, rc in failed))
     return lib_path
 
 

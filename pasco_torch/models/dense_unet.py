@@ -1,5 +1,6 @@
-"""Dense-with-masks PaSCo network at ``n_infers == 1``, inference and
-training (counterpart of ``pasco_tpu/models/dense_unet.py:85-1506``).
+"""Dense-with-masks PaSCo network, inference and training, for any number
+of MIMO subnets ``S = n_infers`` (counterpart of
+``pasco_tpu/models/dense_unet.py:85-1506``).
 
 Every U-Net stage computes on a dense ``[X, Z, Y, C]`` volume over the
 working box with an ``[X, Z, Y]`` occupancy mask.  At inference
@@ -24,8 +25,13 @@ does.  On a CPU tensor every op runs its plain PyTorch version.
 Submodule and parameter names equal the flax names, and parameters keep
 the flax shapes (conv kernels ``[taps, Ci, Co]``, BN ``scale``/``bias``/
 ``mean``/``var``); :mod:`pasco_torch.convert` maps a flax variable tree
-onto this module.  MC dropout and ``n_infers > 1`` are not ported yet
-(ROADMAP.md, queue 1).
+onto this module.
+
+At ``S > 1`` the subnets share the backbone: the featurizer scatters each
+point into its subnet's lane block of the ``S * f``-wide ``enc_in`` input,
+the heads emit ``S * K`` logits, and each subnet runs its own refiner on
+its own keep set and its own query set in the transformer.  MC dropout is
+not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -49,11 +55,9 @@ from pasco_torch.ops.conv import MaskedConv3Fn, conv_tiles, masked_conv3
 from pasco_torch.ops.deconv import up_preamble, up_tiles
 from pasco_torch.ops.dense_ops import (
     bbox_mask, cap_keep_gumbel, deconv2_dense, down2_dense, extract_sparse,
-    extract_sparse_train, maxpool2_mask, point_dropout, scatter_max_rows,
-    upsample2_mask)
+    extract_sparse_train, maxpool2_mask, point_dropout, upsample2_mask)
 from pasco_torch.ops.down import down2_fused, down_tiles
-
-NEG = -1e30   # finite featurizer sentinel (dense_unet.py:1137-1145)
+from pasco_torch.ops.featurizer import enc_in_1x1, scatter_points
 
 
 def _tiles(fn, mask):
@@ -310,9 +314,6 @@ class DensePaSCoNet(nn.Module):
     def __init__(self, cfg: PaSCoConfig):
         super().__init__()
         m = cfg.model
-        if m.n_infers != 1:
-            raise NotImplementedError(
-                "n_infers > 1 is not ported yet (ROADMAP.md, queue 1 item 1)")
         self.cfg = cfg
         fm = m.f_maps
         n_res = m.res_blocks if m.res_blocks is not None else (0 if m.heavy_decoder else 3)
@@ -389,11 +390,16 @@ class DensePaSCoNet(nn.Module):
     def forward(self, inp: ModelInput,
                 labelweights: Optional[Dict[int, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                mc_dropout: bool = False) -> ModelOutput:
+                mc_dropout: bool = False,
+                is_predict_panop: bool = True) -> ModelOutput:
         """One scene.  In training mode (``self.training``) ``labelweights``
         (scale -> [n_classes] completion weights) weight the decoder caps'
         sampling scores, and ``generator`` (on the input's device) draws the
-        point dropout, the caps' Gumbel noise and the transformer dropout."""
+        point dropout, the caps' Gumbel noise and the transformer dropout.
+        ``is_predict_panop=False`` (the sem-only pretraining phase) skips
+        the refiners and the transformer, as the reference does
+        (``dense_unet.py:1384, 1491``): ``panop_grids`` is empty,
+        ``sem_logits_pruned`` zero and ``predictor`` None."""
         if mc_dropout:
             raise NotImplementedError(MC_DROPOUT_NOT_PORTED)
         train = self.training
@@ -404,7 +410,6 @@ class DensePaSCoNet(nn.Module):
         cd = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
         box = Box.create(inp.global_min, cfg.scene.box_extent)
         ex, ey, ez = box.extent
-        n_cells = ex * ey * ez
 
         # ---- point MLP + scatter-max featurizer --------------------------
         pm = inp.point_mask
@@ -414,24 +419,18 @@ class DensePaSCoNet(nn.Module):
         rel = inp.point_coords[:, 1:] - box.minimum[None, :]
         in_box = (pm & (rel >= 0).all(-1) & (rel[:, 0] < ex)
                   & (rel[:, 1] < ey) & (rel[:, 2] < ez))
-        cell = (rel[:, 0] * ez + rel[:, 2]) * ey + rel[:, 1]
-        flat_idx = torch.where(in_box, cell, torch.full_like(cell, n_cells))
-        grid_f = scatter_max_rows(f.to(cd), flat_idx, n_cells, NEG)[:-1]
-        occ = grid_f.amax(-1) > torch.tensor(NEG, dtype=cd)
-        # Values at occupied cells are unchanged; empties become zero (the
-        # sentinel never reaches a product; at S == 1 this is the
-        # reference's train-time sentinel zeroing, dense_unet.py:1178-1189).
-        x = torch.where(occ[:, None], grid_f, torch.zeros((), dtype=cd,
-                                                          device=grid_f.device))
-        mask1 = occ.reshape(ex, ez, ey)
-        x = x.reshape(ex, ez, ey, m.f)
+        # One row per (cell, subnet): subnet s lands in lane block s of the
+        # S * f-wide enc_in input (dense_unet.py:1202-1216; the packed form
+        # :1165-1167 has the same order per z-slot).  Every empty (cell,
+        # subnet) row is zero, not only empty cells: a cell that one subnet
+        # occupies and another does not is mask-valid, and enc_in mixes its
+        # lane blocks (dense_unet.py:1178-1189).
+        subnet = inp.point_coords[:, 0].clamp(0, S - 1)
+        x, occ = scatter_points(f, rel, in_box, subnet, S, box.extent, cd)
+        mask1 = occ.any(-1)
 
         # ---- encoder -------------------------------------------------------
-        w_in = self.enc_in.kernel[0].to(cd)
-        x = (x.reshape(-1, x.shape[-1]) @ w_in + self.enc_in.bias.to(cd))
-        x = torch.where(mask1.reshape(-1, 1), x, torch.zeros((), dtype=cd,
-                                                              device=x.device))
-        x = x.reshape(ex, ez, ey, -1)
+        x = enc_in_1x1(x, mask1, self.enc_in.kernel[0], self.enc_in.bias)
         enc = {1: self.enc_s1(x, mask1)}
         for stride in (2, 4, 8):
             enc[stride] = getattr(self, f"enc_s{stride}")(*enc[stride // 2])
@@ -486,7 +485,7 @@ class DensePaSCoNet(nn.Module):
         # ---- per-subnet refiners + extraction ------------------------------
         panop_grids: Dict[int, SparseGrid] = {}
         sem_pruned = torch.zeros((S, cap.panop_s1, m.n_classes), device=x.device)
-        for scale in (4, 2, 1):
+        for scale in (4, 2, 1) if is_predict_panop else ():
             xd, sem, top_class, dkeep = dense[scale]
             refiner = getattr(self, f"voxel_feats_s{scale}")
             pcap = cap.panop_capacity(scale)
@@ -516,5 +515,6 @@ class DensePaSCoNet(nn.Module):
             sem_logits=sem_at,
             panop_grids=panop_grids,
             sem_logits_pruned=sem_pruned,
-            predictor=self.transformer(panop_grids, box, generator),
+            predictor=(self.transformer(panop_grids, box, generator)
+                       if is_predict_panop else None),
         )

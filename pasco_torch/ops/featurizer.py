@@ -1,0 +1,131 @@
+"""Kernel 8: ``featurizer_fused``, the point featurizer and the ``enc_in``
+1x1 in one pass (replaces ``pasco_tpu/ops/pallas_featurizer.py:
+featurizer_fused`` and its Pallas body ``_featurizer_kernel``).
+
+From the point MLP's features ``f [P, F]``, their in-box voxel coordinates
+``rel [P, 3]`` (x, y, z), the validity ``in_box [P]``, the logical
+``enc_in`` weight ``[F, C]`` and bias ``[C]``, it returns on the port's
+layout
+
+    x   [X, Z, Y, C]  enc_in(max over the cell's points) + b at occupied
+                      cells, exact zeros elsewhere, in ``compute_dtype``;
+    occ [X, Z, Y]     bool, any valid point in the cell.
+
+S == 1 only, as the TPU kernel is.  The TPU kernel's padded, z-pair-packed
+``xpad``, its int8 lane-expanded stage mask and its y halo are TPU layout
+and are not reproduced.  The entry keeps the reference's structure: the key
+sort and the run heads are index preparation outside the kernel (XLA's
+argsort/searchsorted in the reference); one kernel then takes the max over
+each occupied cell's contiguous run of sorted points, marks the occupancy
+and applies the 1x1 with ``W`` held in shared memory plus the bias; the
+empty cells are zero from one memset.
+
+A CPU tensor takes :func:`featurizer_fused_plain`, the model's own
+featurizer chain (:func:`scatter_points` + the masked 1x1); a CUDA tensor
+launches ``csrc/featurizer.cu`` or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from pasco_torch import kernels
+from pasco_torch.ops.dense_ops import scatter_max_rows
+
+NEG = -1e30   # finite featurizer sentinel (pasco_tpu/models/dense_unet.py:1137-1145)
+Extent = Tuple[int, int, int]
+
+
+def cell_index(rel: torch.Tensor, extent: Extent) -> torch.Tensor:
+    """Flat ``[X, Z, Y]`` cell index of in-box voxel coords ``rel`` (x, y, z)."""
+    _, ey, ez = extent
+    return (rel[:, 0] * ez + rel[:, 2]) * ey + rel[:, 1]
+
+
+def scatter_points(f: torch.Tensor, rel: torch.Tensor, in_box: torch.Tensor,
+                   subnet: torch.Tensor, n_subnets: int, extent: Extent,
+                   dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel max of the points of each (cell, subnet) into ``[X, Z, Y,
+    S * F]`` in ``dtype`` (subnet ``s`` in lane block ``s``, the ``enc_in``
+    input order of ``pasco_tpu/models/dense_unet.py:1202-1216``) with every
+    empty (cell, subnet) row zero, and the per-row occupancy
+    ``[X, Z, Y, S]``."""
+    ex, ey, ez = extent
+    S = n_subnets
+    n_rows = ex * ey * ez * S
+    row = cell_index(rel, extent) * S + subnet
+    flat_idx = torch.where(in_box, row, torch.full_like(row, n_rows))
+    grid_f = scatter_max_rows(f.to(dtype), flat_idx, n_rows, NEG)[:-1]
+    occ = grid_f.amax(-1) > torch.tensor(NEG, dtype=dtype)
+    x = torch.where(occ[:, None], grid_f, torch.zeros((), dtype=dtype, device=f.device))
+    return x.reshape(ex, ez, ey, S * f.shape[-1]), occ.reshape(ex, ez, ey, S)
+
+
+def enc_in_1x1(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """The model's ``enc_in``: ``x @ W + b`` in ``x``'s dtype, zero where
+    ``mask`` is False."""
+    dt = x.dtype
+    y = x.reshape(-1, x.shape[-1]) @ weight.to(dt) + bias.to(dt)
+    y = torch.where(mask.reshape(-1, 1), y, torch.zeros((), dtype=dt, device=x.device))
+    return y.reshape(*x.shape[:3], -1)
+
+
+def featurizer_fused_plain(f, rel, in_box, weight, bias, extent: Extent,
+                           compute_dtype: torch.dtype):
+    """The same function in plain PyTorch: the model's featurizer chain
+    at S == 1."""
+    x, occ = scatter_points(f, rel, in_box, torch.zeros_like(rel[:, 0]), 1, extent,
+                            compute_dtype)
+    occ = occ[..., 0]
+    return enc_in_1x1(x, occ, weight, bias), occ
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def featurizer_fused(
+    f: torch.Tensor,            # [P, F] point MLP features
+    rel: torch.Tensor,          # [P, 3] int in-box voxel coords (x, y, z)
+    in_box: torch.Tensor,       # [P] bool valid and inside the box
+    weight: torch.Tensor,       # [F, C] enc_in weight
+    bias: torch.Tensor,         # [C] enc_in bias
+    extent: Extent,             # (ex, ey, ez) working box
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not f.is_cuda:
+        return featurizer_fused_plain(f, rel, in_box, weight, bias, extent, compute_dtype)
+    P, Fd = f.shape
+    C = weight.shape[-1]
+    dev = f.device
+    ex, ey, ez = extent
+    n_cells = ex * ey * ez
+    if compute_dtype not in _DTYPES:
+        raise ValueError(f"featurizer_fused computes in f32 or bf16, not {compute_dtype}")
+    kernels.require(in_box, "in_box", torch.bool, (P,), dev)
+    if tuple(rel.shape) != (P, 3) or tuple(weight.shape) != (Fd, C) or tuple(bias.shape) != (C,):
+        raise ValueError(f"shapes rel {tuple(rel.shape)}, weight {tuple(weight.shape)}, "
+                         f"bias {tuple(bias.shape)} do not fit f {tuple(f.shape)}")
+    if Fd > 128 or C > 256:
+        raise ValueError(f"featurizer_fused takes F <= 128 and C <= 256, got {Fd}, {C}")
+    # Index preparation (XLA's argsort in the reference): sort the points by
+    # cell, invalid points last, and flag the head of every cell's run.
+    key = torch.where(in_box, cell_index(rel.to(torch.int64), extent),
+                      torch.full((P,), n_cells, dtype=torch.int64, device=dev))
+    ks, order = torch.sort(key)
+    head = (ks < n_cells) & torch.cat([ks[:1] >= 0, ks[1:] != ks[:-1]])
+    fs = f.index_select(0, order).to(compute_dtype).contiguous()
+    ks32 = ks.to(torch.int32).contiguous()
+    w = weight.to(device=dev, dtype=compute_dtype).float().contiguous()
+    b = bias.to(device=dev, dtype=compute_dtype).float().contiguous()
+    x = torch.zeros((ex, ez, ey, C), dtype=compute_dtype, device=dev)
+    occ = torch.zeros((ex, ez, ey), dtype=torch.bool, device=dev)
+    err = kernels.lib().pasco_featurizer(
+        fs.data_ptr(), ks32.data_ptr(), head.data_ptr(), w.data_ptr(), b.data_ptr(),
+        x.data_ptr(), occ.data_ptr(), P, Fd, C, _DTYPES[compute_dtype],
+        kernels.stream_ptr(f))
+    kernels.check(err, "featurizer")
+    kernels.LAUNCHES["featurizer"] += 1
+    return x, occ

@@ -81,10 +81,13 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def compute_losses(net, inp: ModelInput, targets: TargetBundle,
                    labelweights: Dict[int, torch.Tensor], class_weight: torch.Tensor,
-                   cfg: PaSCoConfig, generator=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   cfg: PaSCoConfig, generator=None, is_predict_panop: bool = True
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward in the net's current mode and the weighted loss; returns
-    ``(total, logs)``."""
-    out = net(inp, labelweights, generator)
+    ``(total, logs)``.  With ``is_predict_panop=False`` the forward skips
+    the refiners and the transformer and only the sem-completion losses
+    count (``pasco_tpu/training/step.py:99-137``)."""
+    out = net(inp, labelweights, generator, is_predict_panop=is_predict_panop)
     lc = cfg.loss
     logs: Dict[str, torch.Tensor] = {}
     sem_labels = {1: targets.sem_label_1, 2: targets.sem_label_2, 4: targets.sem_label_4}
@@ -94,40 +97,45 @@ def compute_losses(net, inp: ModelInput, targets: TargetBundle,
     total = (compl_ce + compl_lov) * lc.occ_weight
     logs["compl_ce"] = compl_ce
     logs["compl_lovasz"] = compl_lov
-    sub_t = SubnetTargets(
-        labels=targets.labels, valid=targets.labels_valid,
-        mask_id_dense=targets.mask_id_dense, semantic_dense=targets.semantic_dense,
-        unknown_dense=targets.unknown_dense)
-    crit = criterion_all_subnets(
-        out.predictor, out.panop_grids[1], sub_t, inp.subnet_min, class_weight,
-        labelweights[1], lc, cfg.model.n_classes, include_aux=lc.include_aux)
-    weights = (("loss_ce", lc.ce_weight), ("loss_mask", lc.mask_weight),
-               ("loss_dice", lc.dice_weight))
-    if lc.use_voxel_query_loss:
-        weights += (("ssc_ce", lc.ssc_ce_weight), ("ssc_lovasz", lc.ssc_lovasz_weight))
-    for k, v in crit.items():
-        logs[k] = v
-        for prefix, w in weights:
-            if k.startswith(prefix):
-                total = total + w * v
+    if is_predict_panop:
+        sub_t = SubnetTargets(
+            labels=targets.labels, valid=targets.labels_valid,
+            mask_id_dense=targets.mask_id_dense, semantic_dense=targets.semantic_dense,
+            unknown_dense=targets.unknown_dense)
+        crit = criterion_all_subnets(
+            out.predictor, out.panop_grids[1], sub_t, inp.subnet_min, class_weight,
+            labelweights[1], lc, cfg.model.n_classes, include_aux=lc.include_aux)
+        weights = (("loss_ce", lc.ce_weight), ("loss_mask", lc.mask_weight),
+                   ("loss_dice", lc.dice_weight))
+        if lc.use_voxel_query_loss:
+            weights += (("ssc_ce", lc.ssc_ce_weight), ("ssc_lovasz", lc.ssc_lovasz_weight))
+        for k, v in crit.items():
+            logs[k] = v
+            for prefix, w in weights:
+                if k.startswith(prefix):
+                    total = total + w * v
     logs["total_loss"] = total
     return total, logs
 
 
 def train_step(state: TrainState, inp: ModelInput, targets: TargetBundle,
                labelweights: Dict[int, torch.Tensor], class_weight: torch.Tensor,
-               cfg: PaSCoConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
+               cfg: PaSCoConfig, seed: int = 0,
+               is_predict_panop: bool = True) -> Dict[str, torch.Tensor]:
     """One optimisation step in place: forward in training mode, backward,
     the running statistics folded in, the optimizer update.  Returns the
     logs (detached tensors on the device), ``grad_norm`` (pre-clip)
-    included."""
+    included.  ``is_predict_panop=False`` trains the sem-completion
+    losses only; the refiners and the transformer then get zero gradients,
+    as in the reference (``pasco_tpu/training/step.py:200-230``)."""
     net = state.net
     net.train()
     gen = step_generator(seed, state.step, inp.point_feats.device)
     params = state.opt.params
     for p in params.values():
         p.grad = None
-    total, logs = compute_losses(net, inp, targets, labelweights, class_weight, cfg, gen)
+    total, logs = compute_losses(net, inp, targets, labelweights, class_weight, cfg, gen,
+                                 is_predict_panop)
     total.backward()
     commit_batch_stats(net)
     grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))

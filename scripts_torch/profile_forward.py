@@ -2,12 +2,13 @@
 step, on one GPU.
 
 Usage:
-    python scripts_torch/profile_forward.py [--seed 0] [--out build/profile]
-    python scripts_torch/profile_forward.py --train [--seed 0] [--out build/profile]
+    python scripts_torch/profile_forward.py [--n-infers 1] [--seed 0] [--out build/profile]
+    python scripts_torch/profile_forward.py --train [--n-infers 1] [--seed 0] [--out build/profile]
 
-One synthetic scan (drawn as ``chip_smoke.py`` draws them) goes through
-``PaSCoConfig()`` at n_infers=1 with seeded random init, after two
-warm-ups.  Prints
+One synthetic scan (drawn as ``chip_smoke.py`` draws them: ``--n-infers``
+augmented views of one scene) goes through ``PaSCoConfig()`` at
+``n_infers`` (1: PaSCo-single, 3: the MIMO ensemble) with seeded random
+init, after two warm-ups.  Prints
 
 1. wall and device ms of one forward without the profiler (medians of 3;
    device time from CUDA events) and the peak device memory;
@@ -22,8 +23,9 @@ warm-ups.  Prints
 Writes ``forward_profile.json`` (all of the above) and the Chrome trace
 ``forward_trace.json`` into ``--out``.
 
-With ``--train``: ``PaSCoConfig()`` on the train box, seeded random init,
-one synthetic scene with targets (as ``chip_smoke.py`` draws them); after
+With ``--train``: ``PaSCoConfig()`` at ``n_infers`` on the train box,
+seeded random init, one synthetic scene with targets (as ``chip_smoke.py``
+draws them: a distinct scan per subnet); after
 two warm-up steps it prints
 
 1. wall and device ms of one step without the profiler (median of 3) and
@@ -43,6 +45,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -167,8 +170,10 @@ def train_profile(args) -> None:
     from pasco_tpu.data.semantic_kitti.params import CLASS_FREQUENCIES
 
     dev = torch.device("cuda", 0)
-    cfg = train_config(PaSCoConfig())
-    (col,) = train_scenes(PaSCoConfig(), 1, seed=args.seed)
+    base = PaSCoConfig()
+    base = base.replace(model=dataclasses.replace(base.model, n_infers=args.n_infers))
+    cfg = train_config(base)
+    (col,) = train_scenes(base, 1, seed=args.seed)
     inp = scene_to_model_input(col, dev)
     tgt = tstep.targets_to_device(col.targets, dev)
     lw = {s: torch.as_tensor(v, device=dev)
@@ -251,6 +256,7 @@ def train_profile(args) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-infers", type=int, default=1, help="MIMO subnets (1 or 3)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     ap.add_argument("--train", action="store_true",
                     help="profile one train step instead of one forward")
@@ -271,6 +277,7 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     cfg = PaSCoConfig()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=args.n_infers))
     (_, inp), = make_scans(cfg, 1, dev, seed=args.seed)
     net = build_net(cfg)
     net.reset_parameters(torch.Generator().manual_seed(args.seed))

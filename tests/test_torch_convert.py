@@ -15,8 +15,8 @@ from pasco_torch.models.unet import build_net
 torch.set_num_threads(1)
 
 
-def tiny_f32_config():
-    cfg = tiny_config(n_infers=1)
+def tiny_f32_config(n_infers=1):
+    cfg = tiny_config(n_infers=n_infers)
     return cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
 
 

@@ -139,6 +139,93 @@ def test_stream_extract_bit_exact(dev, n_shape, cap, e):
         assert a.shape == b.shape and torch.equal(a, b)
 
 
+def _column_case(g, dev, shape, c, d, p):
+    m = _mask(g, dev, shape, p)
+    x = torch.where(m[..., None], torch.randn((*shape, c), generator=g).to(dev),
+                    torch.zeros((), device=dev))
+    w = torch.randn((27, c, d), generator=g).to(dev) * (27 * c) ** -0.5
+    b = torch.randn(d, generator=g).to(dev) * 0.1
+    return x, w, m, b
+
+
+@pytest.mark.parametrize("shape,p", [((16, 16, 8), 0.02), ((20, 13, 5), 0.05),
+                                     ((24, 40, 32), 0.01), ((9, 9, 3), 0.3)])
+@pytest.mark.parametrize("c,d", [(64, 64), (16, 32), (40, 48)])
+@pytest.mark.parametrize("part", [1.0, 0.5])
+def test_column_conv3_matches_plain(dev, shape, p, c, d, part):
+    """Row 7: ragged column grids (X, Y not multiples of 8), Z not a
+    multiple of the kernel's z-slab, C not a multiple of its channel chunk,
+    and a capacity at half the occupied columns.  f32 bound
+    ``1e-3 * max|ref| + 1e-3`` at visited cells; elsewhere exactly the bias
+    at mask cells and 0."""
+    from pasco_torch.ops import column_conv as cc
+
+    g = _gen()
+    x, w, m, b = _column_case(g, dev, shape, c, d, p)
+    n_occ = int(cc.active_columns(m, 10 ** 6)[1])
+    cap = max(1, int(n_occ * part))
+    before = kernels.LAUNCHES["column_conv3"]
+    got = cc.block_sparse_conv3(x, w, m, cap, bias=b)
+    assert kernels.LAUNCHES["column_conv3"] == before + 1
+    ref = cc.block_sparse_conv3_plain(x, w, m, cap, bias=b)
+    ids, n = cc.active_columns(m, cap)
+    vis = cc.visited_cells(ids, n, shape[0], shape[1])[..., None].expand(shape)
+    assert (got - ref)[vis].abs().max() <= 1e-3 * ref[vis].abs().max() + 1e-3
+    rest = torch.where(m[..., None], b, torch.zeros((), device=dev))[~vis]
+    assert torch.equal(got[~vis], rest) and torch.equal(ref[~vis], rest)
+
+
+def test_column_conv3_empty_mask(dev):
+    from pasco_torch.ops import column_conv as cc
+
+    x, w, m, b = _column_case(_gen(), dev, (16, 24, 8), 64, 64, 0.0)
+    assert not cc.block_sparse_conv3(x, w, m, 6, bias=b).any()
+
+
+def _points(g, dev, P, F, extent, p_valid=0.9):
+    rel = torch.stack([torch.randint(0, e, (P,), generator=g) for e in extent], 1)
+    rel[: P // 3] = rel[P // 3: 2 * (P // 3)] // 2      # crowded cells
+    f = torch.randn((P, F), generator=g) * 3
+    return f.to(dev), rel.int().to(dev), (torch.rand(P, generator=g) < p_valid).to(dev)
+
+
+@pytest.mark.parametrize("P,F,C,extent", [(5000, 64, 64, (24, 40, 16)),
+                                          (777, 16, 32, (5, 7, 3)),
+                                          (3000, 128, 256, (16, 16, 16))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_featurizer_matches_plain(dev, P, F, C, extent, dtype):
+    """Row 8 against the model's featurizer chain: occupancy identical,
+    values at occupied cells within the bf16 bound (f32: ``1e-4 *
+    max|ref| + 1e-5``), exact zeros elsewhere."""
+    from pasco_torch.ops import featurizer as fz
+
+    g = _gen()
+    f, rel, in_box = _points(g, dev, P, F, extent)
+    w = (torch.randn((F, C), generator=g) * F ** -0.5).to(dev)
+    b = (torch.randn(C, generator=g) * 0.1).to(dev)
+    before = kernels.LAUNCHES["featurizer"]
+    x, occ = fz.featurizer_fused(f, rel, in_box, w, b, extent, dtype)
+    assert kernels.LAUNCHES["featurizer"] == before + 1
+    xr, occr = fz.featurizer_fused_plain(f, rel, in_box, w, b, extent, dtype)
+    assert x.dtype == dtype and torch.equal(occ, occr) and occ.sum() < in_box.sum()
+    if dtype == torch.bfloat16:
+        _check(x, xr, occ)
+    else:
+        err = (x - xr)[occ].abs().max()
+        assert err <= 1e-4 * xr[occ].abs().max() + 1e-5, err
+        assert not x[~occ].any()
+
+
+def test_featurizer_empty_scan(dev):
+    from pasco_torch.ops import featurizer as fz
+
+    g = _gen()
+    f, rel, in_box = _points(g, dev, 500, 64, (8, 16, 8), p_valid=0.0)
+    w, b = torch.ones((64, 64), device=dev), torch.ones(64, device=dev)
+    x, occ = fz.featurizer_fused(f, rel, in_box, w, b, (8, 16, 8))
+    assert not occ.any() and not x.any()
+
+
 def test_wrappers_raise_on_wrong_input(dev):
     x = torch.zeros((4, 4, 4, 64), device=dev)           # f32, not bf16
     m = torch.ones((4, 4, 4), dtype=torch.bool, device=dev)
@@ -146,6 +233,71 @@ def test_wrappers_raise_on_wrong_input(dev):
         conv.masked_conv3(x, m, torch.zeros((27, 64, 64), device=dev))
     with pytest.raises(ValueError):
         extract.stream_extract(m, 10, x)
+
+
+def _forward_matches_cpu_plain(dev, S):
+    import numpy as np
+
+    from pasco_tpu.core.config import flagship_narrow_config
+    from pasco_torch.models.unet import ModelInput, build_net
+
+    cfg = flagship_narrow_config(n_infers=S)
+    r = np.random.RandomState(0)
+    P = cfg.capacity.num_points
+    coords = np.zeros((P, 4), np.int32)
+    coords[:, 0] = r.randint(0, S, P)
+    coords[:, 1:] = np.stack([r.randint(0, e, P) for e in cfg.scene.scene_size], 1)
+    gmax = np.array(cfg.scene.scene_size, np.int32) - 1
+    # one box per subnet inside the scene
+    smin = np.array([[0, 0, 0], [2, 0, 1], [0, 3, 0]], np.int32)[:S]
+    smax = np.stack([gmax, gmax - [0, 2, 0], gmax - [3, 0, 1]])[:S].astype(np.int32)
+    inp = ModelInput(
+        torch.from_numpy(r.randn(P, cfg.model.in_channels).astype(np.float32)),
+        torch.from_numpy(coords), torch.arange(P) < 3000 * S,
+        torch.zeros(3, dtype=torch.int32), torch.from_numpy(gmax),
+        torch.from_numpy(smin), torch.from_numpy(smax))
+    net = build_net(cfg)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = net(inp)
+        net_gpu = net.to(dev)
+        got = net_gpu(ModelInput(*(t.to(dev) for t in inp)))
+
+    def cells(out, scale, s):
+        g = out.sem_grids[scale]
+        m = g.mask.cpu().numpy()
+        c = g.coords.cpu().numpy()
+        lg = out.sem_logits[scale][:, s].float().cpu().numpy()
+        return {tuple(c[i]): lg[i] for i in np.nonzero(m)[0]}
+
+    for scale in (1, 2, 4):
+        a, b = cells(ref, scale, 0), cells(got, scale, 0)
+        assert len(set(a) & set(b)) >= 0.99 * len(set(a) | set(b)), scale
+    strict = set(range(S))   # subnets held to the elementwise query bound
+    if S > 1:
+        for s in range(S):
+            for scale in (1, 2, 4):
+                g_ref, g_got = ref.panop_grids[scale], got.panop_grids[scale]
+                pa = set(map(tuple, g_ref.coords[s][g_ref.mask[s]].tolist()))
+                pb = set(map(tuple, g_got.coords[s][g_got.mask[s]].cpu().tolist()))
+                assert pa and len(pa ^ pb) <= max(1, 0.02 * len(pa | pb)), (scale, s)
+                if pa != pb:
+                    strict.discard(s)
+        assert strict, "no subnet kept identical extraction sets"
+    for s in range(S):
+        a, b = cells(ref, 1, s), cells(got, 1, s)
+        mag = max(max(np.abs(v).max() for v in a.values()), 1.0)
+        worst = max(np.abs(a[k] - b[k]).max() for k in set(a) & set(b))
+        assert worst <= 0.02 * mag + 0.125, (s, worst)
+    q_ref = ref.predictor.query_logits.float().numpy()
+    q_got = got.predictor.query_logits.float().cpu().numpy()
+    assert q_ref.shape[0] == S
+    for s in range(S):
+        d = q_ref[s] - q_got[s]
+        if s in strict:
+            assert np.abs(d).max() <= 0.02 * max(np.abs(q_ref[s]).max(), 1.0) + 0.125, s
+        else:
+            assert np.linalg.norm(d) <= 0.05 * np.linalg.norm(q_ref[s]), s
 
 
 def test_forward_matches_cpu_plain(dev):
@@ -156,47 +308,23 @@ def test_forward_matches_cpu_plain(dev):
     sets nearly identical (Jaccard >= 0.99: the caps bind, so a near-tie
     flipped by bf16 rounding shifts the tail), logits within
     ``0.02 * scale + 0.125``."""
-    import numpy as np
+    _forward_matches_cpu_plain(dev, 1)
 
-    from pasco_tpu.core.config import flagship_narrow_config
-    from pasco_torch.models.unet import ModelInput, build_net
 
-    cfg = flagship_narrow_config(n_infers=1)
-    r = np.random.RandomState(0)
-    P, S = cfg.capacity.num_points, 1
-    coords = np.zeros((P, 4), np.int32)
-    coords[:, 1:] = np.stack([r.randint(0, e, P) for e in cfg.scene.scene_size], 1)
-    gmax = np.array(cfg.scene.scene_size, np.int32) - 1
-    inp = ModelInput(
-        torch.from_numpy(r.randn(P, cfg.model.in_channels).astype(np.float32)),
-        torch.from_numpy(coords), torch.arange(P) < 3000,
-        torch.zeros(3, dtype=torch.int32), torch.from_numpy(gmax),
-        torch.zeros((S, 3), dtype=torch.int32), torch.from_numpy(gmax[None]))
-    net = build_net(cfg)
-    net.reset_parameters(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        ref = net(inp)
-        net_gpu = net.to(dev)
-        got = net_gpu(ModelInput(*(t.to(dev) for t in inp)))
-
-    def cells(out, scale):
-        g = out.sem_grids[scale]
-        m = g.mask.cpu().numpy()
-        c = g.coords.cpu().numpy()
-        lg = out.sem_logits[scale][:, 0].float().cpu().numpy()
-        return {tuple(c[i]): lg[i] for i in np.nonzero(m)[0]}
-
-    for scale in (1, 2, 4):
-        a, b = cells(ref, scale), cells(got, scale)
-        assert len(set(a) & set(b)) >= 0.99 * len(set(a) | set(b)), scale
-    a, b = cells(ref, 1), cells(got, 1)
-    mag = max(max(np.abs(v).max() for v in a.values()), 1.0)
-    worst = max(np.abs(a[k] - b[k]).max() for k in set(a) & set(b))
-    assert worst <= 0.02 * mag + 0.125, worst
-    q_ref = ref.predictor.query_logits.float().numpy()
-    q_got = got.predictor.query_logits.float().cpu().numpy()
-    qmag = max(np.abs(q_ref).max(), 1.0)
-    assert np.abs(q_ref - q_got).max() <= 0.02 * qmag + 0.125
+def test_mimo_forward_matches_cpu_plain(dev):
+    """The same at ``n_infers=3``: points spread over the three subnets,
+    three different subnet boxes; the scale-1 logits of every subnet held
+    to the bounds above.  Each subnet's refined extraction sets may differ
+    in 2% of their union, or in one cell: they follow that subnet's own
+    argmax (class 0 or not) per cell, with no ``any`` over subnets to
+    absorb a bf16 near-tie, so a cell flips more often than in the shared
+    set (measured on an H100 80GB HBM3 at 700 W: 26 of 2061 cells at s1
+    for one subnet, 1 of 29 at s4 for another).  The query logits of a
+    subnet whose sets agree
+    hold to the bound above (measured max|d| 0.036 and 0.004); those of a
+    subnet whose sets differ attend over other voxels and hold to 5% in
+    norm (measured 2.1%, max|d| 0.24)."""
+    _forward_matches_cpu_plain(dev, 3)
 
 
 def test_train_step_matches_cpu_plain(dev):
@@ -206,3 +334,10 @@ def test_train_step_matches_cpu_plain(dev):
     from chip_smoke import narrow_step_check
 
     narrow_step_check(dev)
+
+
+def test_mimo_train_step_matches_cpu_plain(dev):
+    """The same at ``n_infers=3``, a distinct scan per subnet."""
+    from chip_smoke import narrow_step_check
+
+    narrow_step_check(dev, n_infers=3)

@@ -82,10 +82,7 @@ def test_output_shapes(both_outputs):
 
 
 def test_unported_modes_raise():
-    from pasco_tpu.core.config import tiny_config
-
-    with pytest.raises(NotImplementedError):
-        build_net(tiny_config(n_infers=2))
+    """MC dropout is not ported: ``mc_dropout=True`` raises in both modes."""
     cfg = tiny_f32_config()
     net = build_net(cfg)
     inp = ModelInput(*(torch.from_numpy(np.array(a)) for a in make_input(cfg, rng=1)))

@@ -30,6 +30,7 @@ than queries the reference's in-graph assignment is inexact
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -163,12 +164,12 @@ def test_bn_resize_coords_train():
 # --------------------------------------------------------------------------
 
 
-def step_config():
-    """``tiny_f32_config()`` with the decoder caps at the box's cell count
-    per scale (no cap binds), the reference's cheaper ``remat=False``, and
-    ``lr=1e-3`` without warmup so that the update is well above f32
+def step_config(n_infers=1):
+    """``tiny_f32_config(n_infers)`` with the decoder caps at the box's cell
+    count per scale (no cap binds), the reference's cheaper ``remat=False``,
+    and ``lr=1e-3`` without warmup so that the update is well above f32
     rounding of the parameters."""
-    cfg = tiny_f32_config()
+    cfg = tiny_f32_config(n_infers)
     ex, ey, ez = cfg.scene.box_extent
     n = ex * ey * ez
     cap = dataclasses.replace(cfg.capacity, dec_s4=n // 64, dec_s2=n // 8, dec_s1=n)
@@ -176,26 +177,32 @@ def step_config():
                        optim=OptimConfig(lr=1e-3, warmup_steps=0))
 
 
-def synthetic_batch(cfg, seed=0):
+def synthetic_batch(cfg, seed=0, n_points=1500):
+    """One training scene with targets: a distinct synthetic scan of
+    ``n_points`` points per subnet, as the reference's training split
+    draws them (``pasco_tpu/data/semantic_kitti/dataset.py:464-489``)."""
     rng = np.random.RandomState(seed)
-    scene = make_scene(rng, scene_size=cfg.scene.scene_size, n_points=1500,
-                       point_feat_dim=cfg.model.in_channels - 6, n_things=3)
-    return collate([process_scene(scene, None, rng)], cfg,
-                   max_targets=cfg.model.transformer.num_queries, rng=rng)
+    views = []
+    for _ in range(cfg.model.n_infers):
+        scene = make_scene(rng, scene_size=cfg.scene.scene_size, n_points=n_points,
+                           point_feat_dim=cfg.model.in_channels - 6, n_things=3)
+        views.append(process_scene(scene, None, rng))
+    return collate(views, cfg, max_targets=cfg.model.transformer.num_queries, rng=rng)
 
 
-def _reference_step(cfg, col, flat, lw, cw):
-    """The body of ``pasco_tpu.training.step.train_step``, jitted once,
-    also returning the gradients and the model output."""
+@functools.lru_cache(maxsize=None)
+def _reference_fns(cfg, is_predict_panop):
+    """The reference's init and the body of
+    ``pasco_tpu.training.step.train_step`` (also returning the gradients
+    and the model output), each jitted once per configuration."""
     from pasco_tpu.models.dense_unet import DensePaSCoNet
     from pasco_tpu.training import step as jstep
     from pasco_tpu.training.optim import make_optimizer
 
     net = DensePaSCoNet(cfg)
     tx = make_optimizer(cfg.optim)
-    v = nest(flat)
-    state = jstep.TrainState(v["params"], v["batch_stats"], tx.init(v["params"]),
-                             jnp.zeros((), jnp.int32))
+    init = jax.jit(lambda inp, lw: net.init({"params": jax.random.PRNGKey(0)}, inp, lw,
+                                            train=False))
 
     class Capture:     # hands the forward's output out through the aux
         def apply(self, *a, **k):
@@ -203,14 +210,15 @@ def _reference_step(cfg, col, flat, lw, cw):
             self.out = res[0]
             return res
 
-    def step(state, inp, tgt, rng):
+    def step(state, inp, tgt, rng, lw, cw):
         drop_rng, sample_rng = jax.random.split(jax.random.fold_in(rng, state.step))
 
         def loss_fn(params):
             cap = Capture()
             total, logs, mutated = jstep.compute_losses(
                 cap, {"params": params, "batch_stats": state.batch_stats}, inp, tgt,
-                lw, cw, cfg, {"dropout": drop_rng, "sample": sample_rng}, train=True)
+                lw, cw, cfg, {"dropout": drop_rng, "sample": sample_rng}, train=True,
+                is_predict_panop=is_predict_panop)
             return total, (logs, mutated["batch_stats"], cap.out)
 
         (_, (logs, new_bs, out)), grads = jax.value_and_grad(loss_fn, has_aux=True)(
@@ -219,18 +227,16 @@ def _reference_step(cfg, col, flat, lw, cw):
         logs["grad_norm"] = optax.global_norm(grads)
         return grads, optax.apply_updates(state.params, updates), new_bs, logs, out
 
-    return jax.jit(step)(state, jstep.scene_to_model_input(col),
-                         jstep.targets_to_device(col.targets), jax.random.PRNGKey(0))
+    return init, tx, jax.jit(step)
 
 
-@pytest.fixture(scope="module")
-def both_steps():
-    from pasco_tpu.models.dense_unet import DensePaSCoNet
+def run_both_steps(cfg, col, is_predict_panop=True):
+    """One train step of the reference and of the port (with ``remat=True``)
+    from the same perturbed weights on ``col``; returns ``(ref, got)``
+    dictionaries for the ``check_*`` functions below."""
     from pasco_tpu.training import step as jstep
     from pasco_torch.training import step as tstep
 
-    cfg = step_config()
-    col = synthetic_batch(cfg)
     # The featurizer's scatter-max splits a tie's gradient evenly in the
     # port and pairwise in the reference's scan: keep ties out (no two
     # points of one cell with the same features).
@@ -240,13 +246,16 @@ def both_steps():
     freqs = {s: np.random.RandomState(s).rand(cfg.model.n_classes) + 0.1 for s in (1, 2, 4)}
     lw_np = tstep.labelweights_for(cfg, freqs)
     cw_np = tstep.class_weight_vector(cfg.model.n_classes, cfg.loss.no_object_weight)
+    lw = {s: jnp.asarray(w) for s, w in lw_np.items()}
+    init, tx, step = _reference_fns(cfg, is_predict_panop)
     jinp = jstep.scene_to_model_input(col)
-    variables = jax.jit(lambda i: DensePaSCoNet(cfg).init(
-        {"params": jax.random.PRNGKey(0)}, i, {s: jnp.asarray(w) for s, w in lw_np.items()},
-        train=False))(jinp)
-    flat = perturbed(flatten(variables), seed=1)
-    grads, new_params, new_bs, jlogs, jout = _reference_step(
-        cfg, col, flat, {s: jnp.asarray(w) for s, w in lw_np.items()}, jnp.asarray(cw_np))
+    flat = perturbed(flatten(init(jinp, lw)), seed=1)
+    v = nest(flat)
+    jstate = jstep.TrainState(v["params"], v["batch_stats"], tx.init(v["params"]),
+                              jnp.zeros((), jnp.int32))
+    grads, new_params, new_bs, jlogs, jout = step(
+        jstate, jinp, jstep.targets_to_device(col.targets), jax.random.PRNGKey(0), lw,
+        jnp.asarray(cw_np))
 
     pcfg = cfg.replace(model=dataclasses.replace(cfg.model, remat=True))
     net = build_net(pcfg)
@@ -257,20 +266,27 @@ def both_steps():
     before = {k: v.clone() for k, v in net.state_dict().items()}
     logs = tstep.train_step(
         state, scene_to_model_input(col, "cpu"), tstep.targets_to_device(col.targets, "cpu"),
-        {s: T(w) for s, w in lw_np.items()}, T(cw_np), pcfg)
+        {s: T(w) for s, w in lw_np.items()}, T(cw_np), pcfg,
+        is_predict_panop=is_predict_panop)
     tgrads = {k: p.grad for k, p in net.named_parameters()}
     ref = dict(
         grads=flax_to_torch(flatten({"params": grads})),
         params=flax_to_torch(flatten({"params": new_params})),
         stats=flax_to_torch(flatten({"batch_stats": new_bs})),
+        stats_before=flax_to_torch({k: v for k, v in flat.items()
+                                    if k.startswith("batch_stats/")}),
         logs=jlogs, out=jout)
     got = dict(grads=tgrads, net=net, before=before, logs=logs, out=captured[0])
-    return cfg, ref, got
+    return ref, got
 
 
-@pytest.mark.parametrize("which", ["sem_grids", "panop_grids"])
-def test_step_extraction_coords_identical(both_steps, which):
-    _, ref, got = both_steps
+@pytest.fixture(scope="module")
+def both_steps():
+    cfg = step_config()
+    return (cfg, *run_both_steps(cfg, synthetic_batch(cfg)))
+
+
+def check_step_coords(ref, got, which):
     for scale in (1, 2, 4):
         jg, tg = getattr(ref["out"], which)[scale], getattr(got["out"], which)[scale]
         np.testing.assert_array_equal(tg.mask.numpy(), np.asarray(jg.mask))
@@ -278,14 +294,103 @@ def test_step_extraction_coords_identical(both_steps, which):
         assert tg.mask.sum() > 0
 
 
-def test_step_loss_terms(both_steps):
-    _, ref, got = both_steps
+def check_loss_terms(ref, got, n_terms):
     jl, tl = ref["logs"], got["logs"]
     assert set(tl) == set(jl)
-    assert len(jl) == 2 + 5 * 4 + 2        # compl, 5 terms x 4 levels, total, norm
+    assert len(jl) == n_terms
     for k in jl:
         close(tl[k].numpy(), jl[k], rtol=1e-3, atol=1e-5)
     assert np.isfinite(float(tl["total_loss"])) and float(tl["grad_norm"]) > 0
+
+
+def check_gradients(ref, got):
+    """Bounds at ``test_step_gradients``.  A parameter the step does not
+    reach (the refiners and the transformer in a sem-only step) has a zero
+    gradient in the reference and none in the port."""
+    assert set(ref["grads"]) == set(got["grads"])
+    top = max(g.abs().max().item() for g in ref["grads"].values())
+    n_zero = 0
+    for k, g_ref in ref["grads"].items():
+        g = got["grads"][k]
+        if g is None:
+            assert not g_ref.any(), k
+            continue
+        if STRUCTURALLY_ZERO.search(k):
+            n_zero += 1
+            assert max(g.abs().max().item(), g_ref.abs().max().item()) <= 1e-3 * top, k
+            continue
+        err = (g - g_ref).abs().max().item()
+        bound = 2e-2 * g_ref.abs().max().item() + 1e-6
+        assert err <= bound, (k, err, bound)
+        assert (g - g_ref).norm() <= 1e-2 * g_ref.norm() + 1e-6, k
+    assert 0 < n_zero < len(ref["grads"]) // 4
+
+
+def check_gradients_across_seeds(runs):
+    """The gradient rule of the ``n_infers = 3`` step tests, over the
+    ``(ref, got)`` pairs of several seeds (the reason is given in
+    ``tests/test_torch_mimo_train.py``): every parameter meets the bounds
+    of :func:`check_gradients` on at least one seed, and is within
+    ``1e-1 * |g_ref|`` in norm on every seed."""
+    met = {}
+    for ref, got in runs:
+        assert set(ref["grads"]) == set(got["grads"])
+        top = max(g.abs().max().item() for g in ref["grads"].values())
+        for k, g_ref in ref["grads"].items():
+            g = got["grads"][k]
+            if g is None:
+                assert not g_ref.any(), k
+                continue
+            if STRUCTURALLY_ZERO.search(k):
+                assert max(g.abs().max().item(), g_ref.abs().max().item()) <= 1e-3 * top, k
+                continue
+            diff, ref_norm = (g - g_ref).norm().item(), g_ref.norm().item()
+            assert diff <= 1e-1 * ref_norm + 1e-6, (k, diff / ref_norm)
+            strict = ((g - g_ref).abs().max().item() <= 2e-2 * g_ref.abs().max().item() + 1e-6
+                      and diff <= 1e-2 * ref_norm + 1e-6)
+            met[k] = met.get(k, False) or strict
+    missed = sorted(k for k, ok in met.items() if not ok)
+    assert met and not missed, missed
+
+
+def check_running_stats_and_update(cfg, ref, got, only_where_grads_agree=False):
+    """Bounds at ``test_step_running_stats_and_update``; the running
+    statistics that moved are the ones the reference moved.  With
+    ``only_where_grads_agree`` the update itself is compared only where
+    the two gradients also agree within :func:`check_gradients`'
+    per-element bound (a gradient moved by a ReLU-kink flip moves Adam's
+    sign-like first step with it; the gradient rule covers those)."""
+    net, before = got["net"], got["before"]
+    sd = net.state_dict()
+    for k, v in ref["stats"].items():
+        close(sd[k].numpy(), v.numpy(), rtol=1e-3, atol=1e-5)
+    moved = {k for k, v in ref["stats"].items() if not torch.equal(v, ref["stats_before"][k])}
+    assert moved and moved == {k for k in ref["stats"] if not torch.equal(sd[k], before[k])}
+    lr = cfg.optim.lr      # no warmup: the first step's rate
+    clip = min(1.0, cfg.optim.grad_clip / float(ref["logs"]["grad_norm"]))
+    for k, p_ref in ref["params"].items():
+        p = dict(net.named_parameters())[k].detach()
+        close(p.numpy(), p_ref.numpy(), rtol=0, atol=2 * lr + 1e-6)
+        # Where the sign of g is sure and the clipped |g| is far above
+        # Adam's eps (1e-8), the first step is lr * (sign(g) + wd * p) in
+        # both: compare the update itself.
+        g_ref = ref["grads"][k].abs()
+        sure = (g_ref > 2 * (2e-2 * g_ref.max() + 1e-6)) & (g_ref * clip > 1e-5)
+        if only_where_grads_agree and got["grads"][k] is not None:
+            sure &= (got["grads"][k] - ref["grads"][k]).abs() <= 2e-2 * g_ref.max() + 1e-6
+        du, du_ref = (p - before[k])[sure], (p_ref - before[k])[sure]
+        close(du.numpy(), du_ref.numpy(), rtol=0, atol=1e-3 * lr)
+
+
+@pytest.mark.parametrize("which", ["sem_grids", "panop_grids"])
+def test_step_extraction_coords_identical(both_steps, which):
+    _, ref, got = both_steps
+    check_step_coords(ref, got, which)
+
+
+def test_step_loss_terms(both_steps):
+    _, ref, got = both_steps
+    check_loss_terms(ref, got, 2 + 5 * 4 + 2)   # compl, 5 terms x 4 levels, total, norm
 
 
 def test_step_gradients(both_steps):
@@ -299,42 +404,12 @@ def test_step_gradients(both_steps):
     feeding a training-mode BN, the attention key biases) are rounding
     noise in both and stay below ``1e-3`` of the largest gradient."""
     _, ref, got = both_steps
-    assert set(ref["grads"]) == set(got["grads"])
-    top = max(g.abs().max().item() for g in ref["grads"].values())
-    n_zero = 0
-    for k, g_ref in ref["grads"].items():
-        g = got["grads"][k]
-        assert g is not None, k
-        if STRUCTURALLY_ZERO.search(k):
-            n_zero += 1
-            assert max(g.abs().max().item(), g_ref.abs().max().item()) <= 1e-3 * top, k
-            continue
-        err = (g - g_ref).abs().max().item()
-        bound = 2e-2 * g_ref.abs().max().item() + 1e-6
-        assert err <= bound, (k, err, bound)
-        assert (g - g_ref).norm() <= 1e-2 * g_ref.norm() + 1e-6, k
-    assert 0 < n_zero < len(ref["grads"]) // 4
+    check_gradients(ref, got)
 
 
 def test_step_running_stats_and_update(both_steps):
     cfg, ref, got = both_steps
-    net, before = got["net"], got["before"]
-    sd = net.state_dict()
-    for k, v in ref["stats"].items():
-        close(sd[k].numpy(), v.numpy(), rtol=1e-3, atol=1e-5)
-    assert all(not torch.equal(sd[k], before[k]) for k in ref["stats"])
-    lr = cfg.optim.lr      # no warmup: the first step's rate
-    clip = min(1.0, cfg.optim.grad_clip / float(ref["logs"]["grad_norm"]))
-    for k, p_ref in ref["params"].items():
-        p = dict(net.named_parameters())[k].detach()
-        close(p.numpy(), p_ref.numpy(), rtol=0, atol=2 * lr + 1e-6)
-        # Where the sign of g is sure and the clipped |g| is far above
-        # Adam's eps (1e-8), the first step is lr * (sign(g) + wd * p) in
-        # both: compare the update itself.
-        g_ref = ref["grads"][k].abs()
-        sure = (g_ref > 2 * (2e-2 * g_ref.max() + 1e-6)) & (g_ref * clip > 1e-5)
-        du, du_ref = (p - before[k])[sure], (p_ref - before[k])[sure]
-        close(du.numpy(), du_ref.numpy(), rtol=0, atol=1e-3 * lr)
+    check_running_stats_and_update(cfg, ref, got)
 
 
 # --------------------------------------------------------------------------
