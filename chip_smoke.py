@@ -11,7 +11,11 @@
    same inputs: the conv-like kernels in bf16 at mask-valid cells within
    ``2e-2 * max|ref| + 2e-2`` (bf16 output rounding and another summation
    order) with exact zeros at invalid cells, the extraction bit-exact;
-   each with its median time and the plain version's (CUDA events).  The
+   each with its median time, the plain version's, one library call's
+   where one PyTorch call computes the same function (CUDA events), and
+   the bound from this run's inputs (:func:`bound`).  The conv kernel runs
+   at every main-path shape, s1/s2/s4/s8 on the scan's occupancy and on
+   the near-dense decoder mask (:func:`conv_phase`).  The
    up-preamble runs a second case whose bound comes from the deconv path,
    and shows that a plain run with a broken deconv would fail it;
    the column-sparse conv (row 7) runs through its own entry point on the
@@ -56,14 +60,16 @@
    timed panoptic steps.
 
 Prints the whole run's wall time and a JSON line with the kernels'
-numbers (launches from the MIMO forward, the MIMO train steps and the two
-entry-point phases), then as its last line
+numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
+``bound_by``; launches from the MIMO forward, the MIMO train steps and the
+two entry-point phases), then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
 result line); so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -75,8 +81,12 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 TOL_REL, TOL_ABS = 2e-2, 2e-2
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
+# f32 outside the tensor cores, HBM3.
+PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 N_SCANS = 3
 N_TRAIN_STEPS = 3
 MIMO_S = 3                 # the reference's MIMO headline config (bench.py:54)
@@ -112,10 +122,10 @@ def eval_scene(cfg, rng, n_points=120000, max_angle=30.0):
     under distinct eval augmentations (as bench.py draws them; the
     reference's validation split, ``pasco_tpu/data/semantic_kitti/
     dataset.py:464-489``)."""
-    from pasco_tpu.data.semantic_kitti.collate import collate
-    from pasco_tpu.data.semantic_kitti.dataset import process_scene
-    from pasco_tpu.data.synthetic import make_scene
-    from pasco_tpu.data.transform_utils import generate_random_transformation
+    from pasco_torch.data.semantic_kitti.collate import collate
+    from pasco_torch.data.semantic_kitti.dataset import process_scene
+    from pasco_torch.data.synthetic import make_scene
+    from pasco_torch.data.transform_utils import generate_random_transformation
 
     scene = make_scene(
         rng, scene_size=cfg.scene.scene_size,
@@ -142,6 +152,30 @@ def make_scans(cfg, n, device, seed=0):
         col = eval_scene(cfg, rng)
         out.append((col, scene_to_model_input(col, device)))
     return out
+
+
+def bound(flop, nbytes, peak=PEAK_BF16):
+    """Least time on the card (ms) for ``flop`` operations at ``peak`` and
+    ``nbytes`` moved through HBM, and which of the two bounds it."""
+    ops, mem = flop / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def nbytes(*ts):
+    """Bytes of the tensors, each read (or written) once."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def rows_bytes(t, n):
+    """Bytes of ``n`` rows (cells) of the ``[..., C]`` tensor ``t``: an
+    input the function needs only at ``n`` cells (the mask-valid ones)."""
+    return 0 if t is None else int(n) * t.shape[-1] * t.element_size()
+
+
+def timing_fields(ms, plain_ms, library_ms, flop, nbytes_, peak=PEAK_BF16):
+    """The JSON fields of one timed kernel case."""
+    bms, by = bound(flop, nbytes_, peak)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by)
 
 
 def scan_masks(cfg, inp):
@@ -175,9 +209,96 @@ def _compare(name, got, ref, mask):
     return err, bound
 
 
+def conv3d_library(xm, w):
+    """The library yardstick of kernel 1: one ``F.conv3d`` (bf16, TF32 off,
+    ``channels_last_3d``: the layout of a ``[X, Z, Y, C]`` volume) on the
+    masked, prologue-applied input, the ``[27, Ci, Co]`` taps as
+    ``[Co, Ci, kX, kZ, kY]``.  The port never calls it."""
+    ci, co = w.shape[1:]
+    wl = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 2, 1).contiguous(
+        memory_format=torch.channels_last_3d)
+    xl = xm.permute(3, 0, 1, 2)[None]
+    return lambda: F.conv3d(xl, wl, padding=1)
+
+
+def conv_phase(cfg, inp, keep_ref):
+    """Kernel 1 (``masked_conv3``) at every main-path shape: the res-block
+    conv2 form (BN affine + relu prologue; bias, skip, relu epilogue) at
+    s1/s2/s4/s8 with the widths of the flagship, each on the scan's
+    occupancy (the encoder's masks) and on the near-dense decoder mask (the
+    global bbox at that scale: the decoder's child set at random init); then
+    the other two launch forms at s1 (res-block conv1 on the occupancy,
+    refiner conv1 with the mask only on a 70% keep set).  Each against the
+    plain version (the bound of :func:`_compare`), with its time, the plain
+    version's, the library call's (:func:`conv3d_library`) and the bound
+    from this case's valid cells.  Returns the JSON row: the numbers of the
+    s1 near-dense case, every case under ``cases``."""
+    from pasco_torch.ops import conv
+    from pasco_torch.ops.dense_ops import bbox_mask, maxpool2_mask
+
+    dev = inp.point_feats.device
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(11)
+    box, occ, _ = scan_masks(cfg, inp)
+    cases = []
+    for i, sc in enumerate((1, 2, 4, 8)):
+        if sc > 1:
+            occ = maxpool2_mask(occ)
+        dec = bbox_mask(box, sc, inp.global_min, inp.global_max)
+        cases += [(f"s{sc} scan occupancy", occ, cfg.model.f_maps[i], "conv2"),
+                  (f"s{sc} decoder, near dense", dec, cfg.model.f_maps[i], "conv2")]
+    cases += [("s1 scan occupancy, res-block conv1", cases[0][1], cfg.model.f, "conv1"),
+              ("s1 refiner conv1 (mask only)", keep_ref, cfg.model.f, "mask")]
+    zero = torch.zeros((), dtype=bf, device=dev)
+    out, errs, main = [], [], None
+    for label, m, c, form in cases:
+        X, Z, Y = m.shape
+        mm = m[..., None]
+        x = torch.where(mm, torch.randn((X, Z, Y, c), generator=g, device=dev).to(bf), zero)
+        w = (torch.randn((27, c, c), generator=g, device=dev) * (27 * c) ** -0.5).to(bf)
+        a = torch.rand((c,), generator=g, device=dev) + 0.5
+        cc = torch.rand((c,), generator=g, device=dev) * 0.2 - 0.1
+        kw = {}
+        if form in ("conv1", "conv2"):
+            kw = dict(bias=torch.rand((c,), generator=g, device=dev) * 0.2 - 0.1,
+                      affine=(a, cc), relu_in=True)
+        if form == "conv2":
+            kw.update(skip=torch.where(
+                mm, torch.randn((X, Z, Y, c), generator=g, device=dev).to(bf), zero),
+                relu_out=True)
+        tiles = conv.conv_tiles(m)
+        got = conv.masked_conv3(x, m, w, tiles=tiles, **kw)
+        ref = conv.masked_conv3_plain(x, m, w, **kw)
+        errs.append(_compare(f"masked_conv3 {label} {(X, Z, Y, c)}", got, ref, m)[0])
+        xp = x if not kw else torch.where(mm, torch.relu(a * x.float() + cc).to(bf), zero)
+        n_valid = int(m.sum())
+        # bytes: x and skip at the valid cells, the mask, the weights and
+        # vectors, the whole output (zeros included) written once
+        t = timing_fields(
+            time_ms(lambda: conv.masked_conv3(x, m, w, tiles=tiles, **kw)),
+            time_ms(lambda: conv.masked_conv3_plain(x, m, w, **kw)),
+            time_ms(conv3d_library(xp, w)),
+            n_valid * 27 * c * c * 2,
+            rows_bytes(x, n_valid) + rows_bytes(kw.get("skip"), n_valid)
+            + nbytes(m, w, got, kw.get("bias"), *kw.get("affine", ())))
+        kind = "compute" if t["bound_by"] == "operations" else "memory"
+        print(f"masked_conv3 {label} {(X, Z, Y, c)}, {int(m.sum())} valid cells in "
+              f"{int(tiles.n_active)} of {tiles.n_tiles} tiles: {t['ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library_ms {t['library_ms']:.3f}, bound_ms "
+              f"{t['bound_ms']:.3f} ({kind}), {t['bound_ms'] / t['ms']:.1%} of the bound",
+              flush=True)
+        out.append(dict(case=label, shape=[X, Z, Y, c], **t))
+        if label == "s1 decoder, near dense":
+            main = t
+        del x, got, ref, xp, kw
+    return dict(name="masked_conv3", source="pasco_torch/csrc/masked_conv3.cu",
+                replaces="pasco_tpu/ops/pallas_conv.py:1159", max_abs_err=max(errs),
+                **main, cases=out)
+
+
 def kernel_phases(cfg, inp, gen):
     """Each kernel against its plain version at main-path shapes."""
-    from pasco_torch.ops import conv, deconv, down, extract
+    from pasco_torch.ops import deconv, down, extract
     from pasco_torch.ops.dense_ops import maxpool2_mask, upsample2_mask
 
     dev = inp.point_feats.device
@@ -198,34 +319,7 @@ def kernel_phases(cfg, inp, gen):
     rows = []
     keep_ref = bbox1 & (torch.rand((X, Z, Y), generator=gen) < 0.7).to(dev)
 
-    # --- kernel 1: masked_conv3 at the s1 shape, three forms ----------------
-    w = randn(27, f, f, scale=(27 * f) ** -0.5)
-    b = vec(f)
-    aff = (vec(f, 0.5, 1.5), vec(f))
-    x = masked(randn(X, Z, Y, f), bbox1)
-    skip = masked(randn(X, Z, Y, f), bbox1)
-    forms = [
-        ("res-block conv2 (affine, relu, skip)", bbox1,
-         dict(bias=b, affine=aff, relu_in=True, skip=skip, relu_out=True)),
-        ("res-block conv1 (affine, relu)", occ1,
-         dict(bias=b, affine=aff, relu_in=True)),
-        ("refiner conv1 (mask only)", keep_ref, {}),
-    ]
-    errs, times = [], None
-    for label, m, kw in forms:
-        tiles = conv.conv_tiles(m)
-        got = conv.masked_conv3(x, m, w, tiles=tiles, **kw)
-        ref = conv.masked_conv3_plain(x, m, w, **kw)
-        errs.append(_compare(f"masked_conv3 {label}", got, ref, m)[0])
-        if times is None:
-            times = (
-                time_ms(lambda: conv.masked_conv3(x, m, w, tiles=tiles, **kw)),
-                time_ms(lambda: conv.masked_conv3_plain(x, m, w, **kw)),
-            )
-    rows.append(dict(
-        name="masked_conv3", source="pasco_torch/csrc/masked_conv3.cu",
-        replaces="pasco_tpu/ops/pallas_conv.py:1159", max_abs_err=max(errs),
-        ms=times[0], plain_ms=times[1]))
+    rows.append(conv_phase(cfg, inp, keep_ref))
 
     # --- kernel 2: down2_fused at enc_s2 ---------------------------------
     xd = masked(randn(X, Z, Y, f), occ1)
@@ -234,13 +328,21 @@ def kernel_phases(cfg, inp, gen):
     args = (xd, occ1, m2, wd, vec(2 * f), (vec(2 * f, 0.5, 1.5), vec(2 * f)),
             (vec(2 * f, 0.5, 1.5), vec(2 * f)))
     tiles = down.down_tiles(m2)
-    err, _ = _compare("down2_fused", down.down2_fused(*args, tiles=tiles),
-                      down.down2_fused_plain(*args), m2)
+    got = down.down2_fused(*args, tiles=tiles)
+    err, _ = _compare("down2_fused", got, down.down2_fused_plain(*args), m2)
+    # library: the stride-2 conv alone (taps (ix, iy, iz) -> [Co, Ci, kX, kZ, kY])
+    xl = xd.permute(3, 0, 1, 2)[None]
+    wl = wd.reshape(2, 2, 2, f, 2 * f).permute(4, 3, 0, 2, 1).contiguous(
+        memory_format=torch.channels_last_3d)
     rows.append(dict(
         name="down2_fused", source="pasco_torch/csrc/down2_fused.cu",
         replaces="pasco_tpu/ops/pallas_down.py:244", max_abs_err=err,
-        ms=time_ms(lambda: down.down2_fused(*args, tiles=tiles)),
-        plain_ms=time_ms(lambda: down.down2_fused_plain(*args))))
+        **timing_fields(time_ms(lambda: down.down2_fused(*args, tiles=tiles)),
+                        time_ms(lambda: down.down2_fused_plain(*args)),
+                        time_ms(lambda: F.conv3d(xl, wl, stride=2)),
+                        int(m2.sum()) * 8 * f * 2 * f * 2,
+                        rows_bytes(xd, occ1.sum())
+                        + nbytes(occ1, m2, wd, got, args[4], *args[5], *args[6]))))
 
     # --- kernel 3: up_preamble at dec_s1, two cases ------------------------
     # "coords + skip": the absolute-coordinate channels (cells up to ~300
@@ -274,24 +376,33 @@ def kernel_phases(cfg, inp, gen):
     errs = []
     for label, args in up_cases:
         ref = deconv.up_preamble_plain(*args)
-        err, bound = _compare(f"up_preamble {label}",
-                              deconv.up_preamble(*args, tiles=tiles), ref, union)
+        err, tol = _compare(f"up_preamble {label}",
+                            deconv.up_preamble(*args, tiles=tiles), ref, union)
         errs.append(err)
     for label, wd_bad in (("child offsets rolled", wd_d.roll(1, 0)),
                           ("parent product dropped", torch.zeros_like(wd_d))):
         bad = deconv.up_preamble_plain(*up_args(skip_d, wd_bad, wr_d))
         miss = (bad.float() - ref.float())[union].abs().max().item()
         print(f"check up_preamble deconv resolution, {label}: max|d| "
-              f"{miss:.4g} > bound {bound:.4g}", flush=True)
-        if not miss > bound:
+              f"{miss:.4g} > bound {tol:.4g}", flush=True)
+        if not miss > tol:
             raise AssertionError(f"up_preamble check cannot see a wrong deconv "
-                                 f"({label}: {miss} <= {bound})")
+                                 f"({label}: {miss} <= {tol})")
     args = up_cases[0][1]
+    got = deconv.up_preamble(*args, tiles=tiles)
+    # library: the generative deconv alone, one F.conv_transpose3d
+    pl = masked(parent, pkeep).permute(3, 0, 1, 2)[None]
+    wtl = args[7].reshape(2, 2, 2, 2 * f, f).permute(3, 4, 0, 2, 1).contiguous(
+        memory_format=torch.channels_last_3d)
     rows.append(dict(
         name="up_preamble", source="pasco_torch/csrc/up_preamble.cu",
         replaces="pasco_tpu/ops/pallas_deconv.py:306", max_abs_err=max(errs),
-        ms=time_ms(lambda: deconv.up_preamble(*args, tiles=tiles)),
-        plain_ms=time_ms(lambda: deconv.up_preamble_plain(*args))))
+        **timing_fields(time_ms(lambda: deconv.up_preamble(*args, tiles=tiles)),
+                        time_ms(lambda: deconv.up_preamble_plain(*args)),
+                        time_ms(lambda: F.conv_transpose3d(pl, wtl, stride=2)),
+                        int(child.sum()) * 2 * f * f * 2 + int(union.sum()) * (f + 3) * f * 2,
+                        rows_bytes(parent, pkeep.sum()) + rows_bytes(args[4], union.sum())
+                        + nbytes(pkeep, child, union, got, args[7], args[-2]))))
 
     # --- kernel 4: stream_extract, bit-exact ------------------------------
     cases = [
@@ -299,23 +410,28 @@ def kernel_phases(cfg, inp, gen):
          cfg.capacity.dec_s1),
         ("refiner s1", keep_ref, randn(X, Z, Y, f), cfg.capacity.panop_s1),
     ]
-    times = None
+    fields = None
     for label, keep, pay, cap in cases:
         got = extract.stream_extract(keep, cap, pay)
         ref = extract.stream_extract_plain(keep, cap, pay)
         for gname, g, r in zip(("vals", "src", "valid", "total"), got, ref):
             if g.shape != r.shape or not torch.equal(g, r):
                 raise AssertionError(f"stream_extract {label}: {gname} differs")
-        if times is None:
-            times = (time_ms(lambda: extract.stream_extract(keep, cap, pay)),
-                     time_ms(lambda: extract.stream_extract_plain(keep, cap, pay)))
+        if fields is None:
+            # no library call: one PyTorch call that compacts a capped,
+            # ordered payload with its source rows does not exist
+            # (torch.nonzero syncs the host and leaves the gather to a 2nd)
+            fields = timing_fields(
+                time_ms(lambda: extract.stream_extract(keep, cap, pay)),
+                time_ms(lambda: extract.stream_extract_plain(keep, cap, pay)), None,
+                0, rows_bytes(pay, min(int(keep.sum()), cap)) + nbytes(keep, *got))
     rows.append(dict(
         name="stream_extract", source="pasco_torch/csrc/stream_extract.cu",
-        replaces="pasco_tpu/ops/pallas_extract.py:454", max_abs_err=0.0,
-        ms=times[0], plain_ms=times[1]))
+        replaces="pasco_tpu/ops/pallas_extract.py:454", max_abs_err=0.0, **fields))
     for r in rows:
-        print(f"kernel {r['name']}: max|d| {r['max_abs_err']:.4g}, "
-              f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms", flush=True)
+        print(f"kernel {r['name']}: max|d| {r['max_abs_err']:.4g}, {r['ms']:.3f} ms vs plain "
+              f"{r['plain_ms']:.3f} ms, library_ms {r['library_ms']}, bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     return rows
 
 
@@ -363,15 +479,27 @@ def column_conv_phase(occ1, dev):
         if not (torch.equal(got[~vis], rest) and torch.equal(ref[~vis], rest)):
             raise AssertionError(f"column_conv3 {label}: unvisited columns not conv-free")
         errs.append(err)
-    times = [(time_ms(lambda: cc.block_sparse_conv3(x, w, mask, cap, bias=b)),
-              time_ms(lambda: cc.block_sparse_conv3_plain(x, w, mask, cap, bias=b)))
-             for _, cap in cases]
-    for (label, _), (ms, plain_ms) in zip(cases, times):
-        print(f"kernel column_conv3, {label}: {ms:.3f} ms vs plain {plain_ms:.3f} ms",
-              flush=True)
+    # library: f32 F.conv3d alone over the whole box (TF32 off), [X, Y, Z] order
+    xl = x.permute(3, 0, 1, 2)[None]
+    wl = w.reshape(3, 3, 3, c, c).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib_ms = time_ms(lambda: F.conv3d(xl, wl, padding=1))
+    fields = []
+    for (label, cap), out in zip(cases, outs):
+        ids, n = cc.active_columns(mask, cap)
+        n_vis = int(cc.visited_cells(ids, n, X, Y).sum()) * Z
+        fields.append(timing_fields(
+            time_ms(lambda: cc.block_sparse_conv3(x, w, mask, cap, bias=b)),
+            time_ms(lambda: cc.block_sparse_conv3_plain(x, w, mask, cap, bias=b)), lib_ms,
+            n_vis * 27 * c * c * 2, rows_bytes(x, n_vis) + nbytes(w, mask, b, out),
+            PEAK_F32))
+        t = fields[-1]
+        print(f"kernel column_conv3, {label}: {t['ms']:.3f} ms vs plain {t['plain_ms']:.3f} ms, "
+              f"library_ms {lib_ms:.3f}, bound_ms {t['bound_ms']:.3f} ({t['bound_by']}, f32 "
+              f"FMA peak)", flush=True)
     return dict(name="column_conv3", source="pasco_torch/csrc/column_conv3.cu",
                 replaces="pasco_tpu/ops/pallas_conv.py:1348", max_abs_err=max(errs),
-                launches=launches, ms=times[0][0], plain_ms=times[0][1])
+                launches=launches, **fields[0])
 
 
 def featurizer_phase(cfg, inp, net):
@@ -407,12 +535,18 @@ def featurizer_phase(cfg, inp, net):
     print(f"featurizer: {int(in_box.sum())} points in {int(occ.sum())} cells, "
           f"F={f.shape[1]}, C={x.shape[-1]}", flush=True)
     err, _ = _compare("featurizer", x, xr, occ)
+    # no library call: a scatter-max over points followed by a 1x1 is two
+    # PyTorch calls at least (scatter_reduce, then a product)
     row = dict(name="featurizer", source="pasco_torch/csrc/featurizer.cu",
                replaces="pasco_tpu/ops/pallas_featurizer.py:214", max_abs_err=err,
-               launches=launches, ms=time_ms(lambda: fz.featurizer_fused(*args)),
-               plain_ms=time_ms(lambda: fz.featurizer_fused_plain(*args)))
+               launches=launches, **timing_fields(
+                   time_ms(lambda: fz.featurizer_fused(*args)),
+                   time_ms(lambda: fz.featurizer_fused_plain(*args)), None,
+                   int(occ.sum()) * w.shape[0] * w.shape[1] * 2,
+                   nbytes(f, rel, in_box, w, b, x, occ), PEAK_F32))
     print(f"kernel featurizer: {row['ms']:.3f} ms vs plain {row['plain_ms']:.3f} ms, "
-          f"launches {launches}", flush=True)
+          f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}), launches {launches}",
+          flush=True)
     return row
 
 
@@ -493,9 +627,9 @@ def train_scenes(cfg, n, seed=0):
     """Synthetic training scenes with targets, collated at the train box:
     a distinct scan per subnet, as the reference's training split draws
     them (``pasco_tpu/data/semantic_kitti/dataset.py:464-489``)."""
-    from pasco_tpu.data.semantic_kitti.collate import collate
-    from pasco_tpu.data.semantic_kitti.dataset import process_scene
-    from pasco_tpu.data.synthetic import make_scene
+    from pasco_torch.data.semantic_kitti.collate import collate
+    from pasco_torch.data.semantic_kitti.dataset import process_scene
+    from pasco_torch.data.synthetic import make_scene
     from pasco_torch.training.loop import train_config
 
     tcfg = train_config(cfg)
@@ -555,31 +689,105 @@ def train_conv_phase(cfg, col, gen, dev):
         dym = torch.where(m[..., None], dy, torch.zeros((), dtype=bf, device=dev))
         xm = torch.where(m[..., None], x, torch.zeros((), dtype=bf, device=dev))
         w_t = w.flip(0).transpose(1, 2)
-        t = times[label] = dict(
-            fwd=time_ms(lambda: conv.masked_conv3(x, m, w, b, tiles=tiles)),
-            fwd_plain=time_ms(lambda: conv.masked_conv3_plain(x, m, w, b)),
-            dx=time_ms(lambda: conv.conv3_dx(dym, m, w, tiles)),
-            dx_plain=time_ms(lambda: conv.masked_conv3_plain(dym, m, w_t)),
-            dw=time_ms(lambda: conv.conv3_weight_grad(xm, dym)),
-        )
-        print(f"train conv (row 6) at {(X, Z, Y, f)}, {label}: forward {t['fwd']:.3f} ms "
-              f"vs plain {t['fwd_plain']:.3f} ms; dx {t['dx']:.3f} ms vs plain "
-              f"{t['dx_plain']:.3f} ms; dw (plain per-tap products) {t['dw']:.3f} ms",
-              flush=True)
-    t = times["decoder, near dense"]
+        wb, w_tb = w.to(bf), w_t.to(bf)
+        n_valid = int(m.sum())
+        flop = n_valid * 27 * f * f * 2
+        # bytes: the input at the valid cells, the mask, the weights (and
+        # bias), the whole output written once (x and dym have its shape)
+        fwd = timing_fields(time_ms(lambda: conv.masked_conv3(x, m, w, b, tiles=tiles)),
+                            time_ms(lambda: conv.masked_conv3_plain(x, m, w, b)),
+                            time_ms(conv3d_library(xm, wb)), flop,
+                            rows_bytes(x, n_valid) + nbytes(m, wb, b, x))
+        dx = timing_fields(time_ms(lambda: conv.conv3_dx(dym, m, w, tiles)),
+                           time_ms(lambda: conv.masked_conv3_plain(dym, m, w_t)),
+                           time_ms(conv3d_library(dym, w_tb)), flop,
+                           rows_bytes(dym, n_valid) + nbytes(m, wb, dym))
+        times[label] = dx
+        dw_ms = time_ms(lambda: conv.conv3_weight_grad(xm, dym))
+        for name, t in (("forward", fwd), ("dx", dx)):
+            kind = "compute" if t["bound_by"] == "operations" else "memory"
+            print(f"train conv (row 6) {name} at {(X, Z, Y, f)}, {label}: {t['ms']:.3f} ms, "
+                  f"plain {t['plain_ms']:.3f} ms, library_ms {t['library_ms']:.3f}, bound_ms "
+                  f"{t['bound_ms']:.3f} ({kind}), {t['bound_ms'] / t['ms']:.1%} of the bound",
+                  flush=True)
+        print(f"train conv (row 6) dw (plain per-tap products) at {(X, Z, Y, f)}, {label}: "
+              f"{dw_ms:.3f} ms", flush=True)
     return dict(name="conv3_dx", source="pasco_torch/csrc/masked_conv3.cu",
                 replaces="pasco_tpu/ops/pallas_conv.py:1303", max_abs_err=errs["dx"],
-                ms=t["dx"], plain_ms=t["dx_plain"])
+                **times["decoder, near dense"])
 
 
-def narrow_step_check(dev, n_infers=1):
+class DecisionPins:
+    """The train step's discrete decisions, shared by several runs of it.
+    A kept cell (the per-subnet argmax of the bf16 decoder logits,
+    ``top_class``), an attention-mask entry (a mask logit against 0,
+    ``downscale_attn_allowed``) and a query-target assignment
+    (``match_all``) each flip at a near-tie, which the summation order
+    decides, and a flip moves every gradient downstream of it.  The first
+    run under :meth:`run` records each decision, call by call; every later
+    run uses the recorded ones in place of its own."""
+
+    def __init__(self):
+        self.calls = {}
+
+    @contextlib.contextmanager
+    def run(self):
+        from pasco_torch.loss import criterion
+        from pasco_torch.models import dense_unet, transformer
+
+        sites = ((dense_unet.DenseDecoderStage, "_finish", 2),
+                 (transformer, "downscale_attn_allowed", None),
+                 (criterion, "match_all", None))
+        record = not self.calls
+        saved, used = [], {}
+        for owner, name, idx in sites:
+            fn = getattr(owner, name)
+            saved.append((owner, name, fn))
+            setattr(owner, name, self._pin(fn, self.calls.setdefault(name, []), record, idx,
+                                           used.setdefault(name, [0])))
+        try:
+            yield
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+        short = {k: (used[k][0], len(v)) for k, v in self.calls.items()
+                 if not v or not record and used[k][0] != len(v)}
+        if short:
+            raise AssertionError(f"pinned decisions (used, recorded) do not match: {short}")
+
+    @staticmethod
+    def _pin(fn, calls, record, idx, used):
+        def pinned(*args, **kw):
+            out = fn(*args, **kw)
+            got = out if idx is None else out[idx]
+            one = isinstance(got, torch.Tensor)
+            if record:
+                calls.append([t.cpu() for t in ([got] if one else got)])
+                return out
+            want = calls[used[0]]
+            used[0] += 1
+            mine = [got] if one else got
+            if [t.shape for t in want] != [t.shape for t in mine]:
+                raise AssertionError(f"pinned decision of another shape at call {used[0]}")
+            want = [w.to(t.device) for w, t in zip(want, mine)]
+            want = want[0] if one else want
+            return want if idx is None else (*out[:idx], want, *out[idx + 1:])
+
+        return pinned
+
+
+def narrow_step_check(dev, n_infers=1, seed=1):
     """One train step at ``flagship_narrow_config(n_infers)`` with the
     kernels on the card (bf16) against the same step with the plain
     versions on the CPU, in bf16 and in f32, from the same weights and
-    inputs.  The decoder caps are raised to the box's cell count, so the
-    Gumbel cap is a no-op; the config has no point dropout; the BN biases
-    are drawn non-zero (at a zero bias, a leaky/relu between two BNs makes
-    the first one's scale gradient structurally zero).
+    inputs (the scene from data ``seed``).  The decoder caps are raised to
+    the box's cell count, so the Gumbel cap is a no-op; the config has no
+    point dropout; the BN biases are drawn non-zero (at a zero bias, a
+    leaky/relu between two BNs makes the first one's scale gradient
+    structurally zero).  The two CPU steps take the card step's discrete
+    decisions (:class:`DecisionPins`: kept cells, attention masks,
+    matches), so that the three steps differ only by rounding, not by a
+    near-tie that the summation order flipped (PERF.md, Findings).
 
     In bf16 this model's gradient at random init is far from its f32
     gradient (median 25% in norm per parameter, measured for both the
@@ -591,7 +799,7 @@ def narrow_step_check(dev, n_infers=1):
     in norm, with the median over parameters of the left side at most 1.2
     times the right side's; the structurally zero gradients (rounding
     noise) stay below ``1e-2`` of the largest gradient."""
-    from pasco_tpu.core.config import OptimConfig, flagship_narrow_config
+    from pasco_torch.core.config import OptimConfig, flagship_narrow_config
     from pasco_torch.models.norm import BatchNorm
     from pasco_torch.models.unet import build_net, scene_to_model_input
     from pasco_torch.training import step as tstep
@@ -602,29 +810,30 @@ def narrow_step_check(dev, n_infers=1):
     cfg = cfg.replace(
         capacity=dataclasses.replace(cfg.capacity, dec_s4=n // 64, dec_s2=n // 8, dec_s1=n),
         optim=OptimConfig(lr=1e-3, warmup_steps=0))
-    col = train_scenes(cfg, 1, seed=1)[0]
     freqs = {s: np.ones(cfg.model.n_classes) for s in (1, 2, 4)}
     lw = tstep.labelweights_for(cfg, freqs)
     cw = tstep.class_weight_vector(cfg.model.n_classes, cfg.loss.no_object_weight)
-    init = build_net(cfg)
+    init = build_net(cfg, device="cpu")
     init.reset_parameters(torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for m in init.modules():
             if isinstance(m, BatchNorm):
                 m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
-    runs = {}
+    col = train_scenes(cfg, 1, seed=seed)[0]
+    runs, pins = {}, DecisionPins()
     for name, dtype, d in (("cuda", "bfloat16", dev), ("cpu", "bfloat16", torch.device("cpu")),
                            ("cpu f32", "float32", torch.device("cpu"))):
         c = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype=dtype))
-        model = build_net(c)
+        model = build_net(c, d)
         model.load_state_dict(init.state_dict())
-        state = tstep.create_train_state(model.to(d), c)
+        state = tstep.create_train_state(model, c)
         t0 = time.perf_counter()
-        logs = tstep.train_step(
-            state, scene_to_model_input(col, d), tstep.targets_to_device(col.targets, d),
-            {s: torch.as_tensor(v, device=d) for s, v in lw.items()},
-            torch.as_tensor(cw, device=d), c)
+        with pins.run():
+            logs = tstep.train_step(
+                state, scene_to_model_input(col, d), tstep.targets_to_device(col.targets, d),
+                {s: torch.as_tensor(v, device=d) for s, v in lw.items()},
+                torch.as_tensor(cw, device=d), c)
         runs[name] = ({k: float(v) for k, v in logs.items()},
                       {k: p.grad.float().cpu() for k, p in model.named_parameters()},
                       time.perf_counter() - t0)
@@ -642,7 +851,7 @@ def narrow_step_check(dev, n_infers=1):
     zero = max(max(grads[k].abs().max().item(), v.abs().max().item())
                for k, v in ref_g.items() if STRUCTURALLY_ZERO.search(k))
     ratio = max(err[k] / max(err_plain[k], 1e-12) for k in err)
-    print(f"narrow step: total_loss {logs['total_loss']:.6g} (cuda bf16) vs "
+    print(f"narrow step (n_infers={n_infers}, seed {seed}): total_loss {logs['total_loss']:.6g} (cuda bf16) vs "
           f"{ref_logs['total_loss']:.6g} (cpu plain bf16) vs "
           f"{runs['cpu f32'][0]['total_loss']:.6g} (cpu plain f32); worst loss term at "
           f"{worst:.3f} of its bound; gradient error against f32, median over "
@@ -762,7 +971,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pasco_tpu.core.config import PaSCoConfig
+    from pasco_torch.core.config import PaSCoConfig
     from pasco_torch import kernels
     from pasco_torch.models.unet import build_net
 
@@ -785,9 +994,8 @@ def main():
     rows = kernel_phases(cfg, scans[0][1], gen)
     rows.append(column_conv_phase(scan_masks(cfg, scans[0][1])[1], dev))
 
-    net = build_net(cfg)
+    net = build_net(cfg, dev)
     net.reset_parameters(torch.Generator().manual_seed(0))
-    net = net.to(dev)
     forward_phase(cfg, scans, net)
     rows.append(featurizer_phase(cfg, scans[0][1], net))
     scene_inference_phase(cfg, net, scans[0])
@@ -796,9 +1004,8 @@ def main():
 
     # The MIMO ensemble: the slice's main path.
     cfg3 = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=MIMO_S))
-    net3 = build_net(cfg3)
+    net3 = build_net(cfg3, dev)
     net3.reset_parameters(torch.Generator().manual_seed(0))
-    net3 = net3.to(dev)
     scans3 = make_scans(cfg3, N_SCANS, dev, seed=1)
     launches = forward_phase(cfg3, scans3, net3, "MIMO forward")
     scene_inference_phase(cfg3, net3, scans3[0])

@@ -2,10 +2,12 @@
 metric accumulators over scenes (counterpart of
 ``pasco_tpu/inference/pipeline.py:41-236``).
 
-The network runs on the tensors' device; everything after it is the
-reference's NumPy host code (``pasco_tpu.inference.{ensemble,panoptic}``,
-``pasco_tpu.metrics``, ``prepare_mask_targets``), reused as it is.  The
-reference module imports JAX, so :class:`Evaluator` is restated here.
+The network runs on the tensors' device; everything after it is NumPy
+host code: the port's copies of the reference's ensembling, panoptic
+assembly, metrics and ``prepare_mask_targets``
+(``pasco_torch.inference.{ensemble,panoptic}``, ``pasco_torch.metrics``,
+``pasco_torch.data``).  The reference module imports JAX, so
+:class:`Evaluator` is restated here.
 """
 
 from __future__ import annotations
@@ -16,15 +18,15 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from pasco_tpu.core.config import PaSCoConfig
-from pasco_tpu.data.semantic_kitti.collate import CollatedScene
-from pasco_tpu.data.semantic_kitti.dataset import prepare_mask_targets
-from pasco_tpu.inference.ensemble import ensemble_panop, ensemble_sem_compl, ssc_confidence
-from pasco_tpu.inference.panoptic import _softmax, panoptic_inference
-from pasco_tpu.metrics.pq import (
+from pasco_torch.core.config import PaSCoConfig
+from pasco_torch.data.semantic_kitti.collate import CollatedScene
+from pasco_torch.data.semantic_kitti.dataset import prepare_mask_targets
+from pasco_torch.inference.ensemble import ensemble_panop, ensemble_sem_compl, ssc_confidence
+from pasco_torch.inference.panoptic import _softmax, panoptic_inference
+from pasco_torch.metrics.pq import (
     PQStat, find_matched_segments, mask_labels_to_panoptic, pq_update)
-from pasco_tpu.metrics.ssc import SSCMetrics
-from pasco_tpu.metrics.uncertainty import UncertaintyMetrics
+from pasco_torch.metrics.ssc import SSCMetrics
+from pasco_torch.metrics.uncertainty import UncertaintyMetrics
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

@@ -32,6 +32,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
 ]
+# Extra nvcc flags, e.g. the defines of scripts_torch/conv_ablation.py's
+# variants; they are part of the build hash.
+EXTRA_FLAGS_ENV = "PASCO_NVCC_EXTRA_FLAGS"
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -40,8 +43,8 @@ L = ctypes.c_longlong
 # C signature of every entry point (all return cudaError_t as int).
 _SIGNATURES = {
     # x, mask, w, bias, aff_a, aff_c, skip, out, tile_ids, n_active,
-    # X, Z, Y, Ci, Co, TX, TZ, relu_in, relu_out, n_tiles, stream
-    "pasco_masked_conv3": [P] * 10 + [I] * 10 + [P],
+    # X, Z, Y, C, flip, relu_in, relu_out, n_tiles, stream
+    "pasco_masked_conv3": [P] * 10 + [I] * 8 + [P],
     # x, mask_in, mask_out, w, bias, a1, c1, a2, c2, out, tile_ids,
     # n_active, X, Z, Y, Ci, Co, n_tiles, stream
     "pasco_down2_fused": [P] * 12 + [I] * 6 + [P],
@@ -89,11 +92,12 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the sources (if this hash is not built yet); returns the
     library path.  Raises with nvcc's output on failure."""
+    flags = NVCC_FLAGS + os.environ.get(EXTRA_FLAGS_ENV, "").split()
     h = hashlib.sha256()
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     out_dir = _BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / "libpasco_kernels.so"
     if lib_path.exists():
@@ -104,13 +108,13 @@ def build() -> Path:
     objs = [out_dir / f"{s.stem}.{tag}.o" for s in cus]
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True))
-             for cmd in ([_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(o), str(s)]
+             for cmd in ([_nvcc(), *flags, "-I", str(_CSRC), "-c", "-o", str(o), str(s)]
                          for s, o in zip(cus, objs))]
     failed = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
     failed = [f for f in failed if f[2] != 0]
     if not failed:
         tmp = out_dir / f"libpasco_kernels.{tag}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        cmd = [_nvcc(), *flags, "-shared", "-o", str(tmp), *map(str, objs)]
         res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if res.returncode == 0:
             os.replace(tmp, lib_path)

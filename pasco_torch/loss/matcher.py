@@ -4,7 +4,7 @@
 The cost matrices (focal + dice + class costs over the queries and the
 padded target slots) are computed on the device without autograd; the
 assignment itself runs on the host through the native solver
-(``pasco_tpu.native.linear_sum_assignment``, NumPy only), as the
+(``pasco_torch.native.linear_sum_assignment``, NumPy only), as the
 reference's ``_host_assign`` does.  :func:`match_all` takes every cost
 matrix of a step to the host in one transfer.  The reference's in-graph
 JAX solver is not ported: the host solver is exact too.
@@ -17,7 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
-from pasco_tpu import native
+from pasco_torch import native
 
 
 def batch_dice_cost(inputs, targets, valid):

@@ -44,7 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pasco_tpu.core.config import PaSCoConfig
+from pasco_torch.core.config import PaSCoConfig
 from pasco_torch.core.sparse import Box, SparseGrid, stack_grids
 from pasco_torch.models.blocks import ConvParams
 from pasco_torch.models.bottleneck import SPCDense3D

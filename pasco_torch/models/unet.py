@@ -8,8 +8,8 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from pasco_tpu.core.config import PaSCoConfig
-from pasco_tpu.data.semantic_kitti.collate import CollatedScene
+from pasco_torch.core.config import PaSCoConfig
+from pasco_torch.data.semantic_kitti.collate import CollatedScene
 from pasco_torch.core.sparse import SparseGrid
 
 
@@ -50,11 +50,16 @@ def scene_to_model_input(scene: CollatedScene, device) -> ModelInput:
     )
 
 
-def build_net(cfg: PaSCoConfig):
-    """The dense-substrate network (the only substrate ported)."""
+def build_net(cfg: PaSCoConfig, device="cuda"):
+    """The dense-substrate network (the only substrate ported), on
+    ``device``: the card unless the caller asks for the CPU
+    (``device="cpu"``); without a card the default raises."""
     if cfg.model.substrate != "dense":
         raise NotImplementedError(
             "the sparse substrate is not ported (ROADMAP.md, queue 1)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_net: no CUDA device; pass device='cpu' for the CPU")
     from pasco_torch.models.dense_unet import DensePaSCoNet
 
-    return DensePaSCoNet(cfg)
+    return DensePaSCoNet(cfg).to(device)

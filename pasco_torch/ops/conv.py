@@ -27,8 +27,8 @@ import torch.nn.functional as F
 from pasco_torch import kernels
 from pasco_torch.ops.dense_ops import conv3_dense
 
-TY = 16           # tile y extent (kernel constant)
-TILE_ROWS = 8     # (x, z) rows per tile: TX * TZ (kernel constant)
+TX, TZ, TY = 4, 4, 16     # tile extents (kernel constants): 256 output cells
+WIDTHS = (64, 128, 256)   # Ci = Co the kernel takes: the model's widths
 
 Affine = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -51,17 +51,15 @@ def _active_list(active: torch.Tensor, **geom) -> Tiles:
 
 
 def conv_tiles(mask: torch.Tensor) -> Tiles:
-    """Tiles of ``TX x TZ x 16`` cells of an ``[X, Z, Y]`` mask with any
+    """Tiles of ``TX x TZ x TY`` cells of an ``[X, Z, Y]`` mask with any
     valid cell.  Built once per stage and shared by its convs."""
     X, Z, Y = mask.shape
-    tz = min(TILE_ROWS, 1 << max(Z - 1, 0).bit_length())
-    tx = TILE_ROWS // tz
-    nbx, nbz, nby = -(-X // tx), -(-Z // tz), -(-Y // TY)
-    m = torch.zeros((nbx * tx, nbz * tz, nby * TY), dtype=torch.bool,
+    nbx, nbz, nby = -(-X // TX), -(-Z // TZ), -(-Y // TY)
+    m = torch.zeros((nbx * TX, nbz * TZ, nby * TY), dtype=torch.bool,
                     device=mask.device)
     m[:X, :Z, :Y] = mask
-    active = m.reshape(nbx, tx, nbz, tz, nby, TY).any(5).any(3).any(1).reshape(-1)
-    return _active_list(active, tx=tx, tz=tz)
+    active = m.reshape(nbx, TX, nbz, TZ, nby, TY).any(5).any(3).any(1).reshape(-1)
+    return _active_list(active, tx=TX, tz=TZ)
 
 
 def masked_conv3_plain(x, mask, weight, bias=None, affine: Affine = None,
@@ -103,17 +101,17 @@ def masked_conv3(
     return out
 
 
-def _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles):
-    """One launch of ``csrc/masked_conv3.cu`` (the caller counts it)."""
-    X, Z, Y, ci = x.shape
-    co = weight.shape[-1]
+def _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles, flip=False):
+    """One launch of ``csrc/masked_conv3.cu`` (the caller counts it).
+    ``flip`` runs the data-gradient mode on the original ``[27, C, C]``
+    weight: taps reversed, Ci and Co swapped, read in place."""
+    X, Z, Y, ch = x.shape
     dev = x.device
     kernels.require(x, "x", torch.bfloat16)
     kernels.require(mask, "mask", torch.bool, (X, Z, Y), dev)
-    if tuple(weight.shape) != (27, ci, co):
-        raise ValueError(f"weight shape {tuple(weight.shape)} != (27, {ci}, {co})")
-    if ci % 32 or co % 64:
-        raise ValueError(f"masked_conv3 needs Ci % 32 == 0 and Co % 64 == 0, got {ci}, {co}")
+    if tuple(weight.shape) != (27, ch, ch) or ch not in WIDTHS:
+        raise ValueError(f"masked_conv3 takes Ci = Co in {WIDTHS} and a (27, Ci, Co) "
+                         f"weight, got x {tuple(x.shape)}, weight {tuple(weight.shape)}")
     w = weight.to(device=dev, dtype=torch.bfloat16).contiguous()
     b = None if bias is None else bias.to(device=dev, dtype=torch.float32).contiguous()
     a = c = None
@@ -121,16 +119,20 @@ def _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles):
         a = affine[0].to(device=dev, dtype=torch.float32).contiguous()
         c = affine[1].to(device=dev, dtype=torch.float32).contiguous()
     if skip is not None:
-        kernels.require(skip, "skip", torch.bfloat16, (X, Z, Y, co), dev)
+        kernels.require(skip, "skip", torch.bfloat16, (X, Z, Y, ch), dev)
     if tiles is None:
         tiles = conv_tiles(mask)
-    out = torch.zeros((X, Z, Y, co), dtype=torch.bfloat16, device=dev)
+    if (tiles.tx, tiles.tz) != (TX, TZ):
+        raise ValueError(f"tiles of {(tiles.tx, tiles.tz)} are not conv_tiles(mask)")
+    if (x.data_ptr() | w.data_ptr() | (0 if skip is None else skip.data_ptr())) % 16:
+        raise ValueError("masked_conv3 needs 16-byte aligned x, weight and skip")
+    # every cell is written: by its active tile, or as zero by an inactive one
+    out = torch.empty((X, Z, Y, ch), dtype=torch.bfloat16, device=dev)
     err = kernels.lib().pasco_masked_conv3(
         x.data_ptr(), mask.data_ptr(), w.data_ptr(), kernels.ptr(b),
         kernels.ptr(a), kernels.ptr(c), kernels.ptr(skip), out.data_ptr(),
-        tiles.ids.data_ptr(), tiles.n_active.data_ptr(), X, Z, Y, ci, co,
-        tiles.tx, tiles.tz, int(relu_in), int(relu_out), tiles.n_tiles,
-        kernels.stream_ptr(x),
+        tiles.ids.data_ptr(), tiles.n_active.data_ptr(), X, Z, Y, ch, int(flip),
+        int(relu_in), int(relu_out), tiles.n_tiles, kernels.stream_ptr(x),
     )
     kernels.check(err, "masked_conv3")
     return out
@@ -147,12 +149,13 @@ def conv3_dx(dym: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
     ``dym``: ``M * conv3(dym, w_t)`` with ``w_t = weight.flip(0)
     .transpose(1, 2)`` (``pallas_conv.py:1324-1326``).  ``flip(0)`` negates
     every tap offset because ``kernel_offsets(3)`` enumerates {-1, 0, 1}^3
-    symmetrically.  On a CUDA tensor this is one launch of the kernel with
-    ``Ci' = Co`` and ``Co' = Ci``, counted as ``conv3_dx``."""
-    w_t = weight.flip(0).transpose(1, 2)
+    symmetrically.  On a CUDA tensor this is one launch of the kernel in
+    its flipped mode, which reads ``weight`` itself with the taps reversed
+    and ``Ci``/``Co`` swapped (no transposed copy), counted as
+    ``conv3_dx``."""
     if not dym.is_cuda:
-        return masked_conv3_plain(dym, mask, w_t)
-    out = _launch(dym, mask, w_t, None, None, False, None, False, tiles)
+        return masked_conv3_plain(dym, mask, weight.flip(0).transpose(1, 2))
+    out = _launch(dym, mask, weight, None, None, False, None, False, tiles, flip=True)
     kernels.LAUNCHES["conv3_dx"] += 1
     return out
 

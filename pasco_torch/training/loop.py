@@ -18,7 +18,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
-from pasco_tpu.core.config import PaSCoConfig
+from pasco_torch.core.config import PaSCoConfig
 from pasco_torch.models.unet import build_net, scene_to_model_input
 from pasco_torch.training import step as tstep
 
@@ -38,7 +38,7 @@ def train_config(cfg: PaSCoConfig) -> PaSCoConfig:
 def train(
     cfg: PaSCoConfig,
     scenes: Iterable,
-    device="cpu",
+    device="cuda",
     class_frequencies=None,
     seed: int = 0,
     lr_mode: str = "reference",
@@ -48,7 +48,8 @@ def train(
 ) -> tstep.TrainState:
     """Train on ``scenes`` (``CollatedScene``s collated at the train box).
     A new state is a net built at the train box with the seeded init
-    (``reset_parameters``) on ``device``.  Each step's record holds the
+    (``reset_parameters``) on ``device``: the card unless the caller asks
+    for the CPU (``device="cpu"``); without a card the default raises.  Each step's record holds the
     step, ``total_loss``, ``grad_norm``, ``is_predict_panop`` and
     ``step_s`` (host clock around the step, synchronised on a CUDA device)
     and there ``device_ms`` (CUDA events around the step); ``log`` gets
@@ -61,13 +62,13 @@ def train(
     199-202``) with one epoch taken as one pass over ``scenes``, i.e.
     ``epochs * len(scenes)`` steps; an iterable without a length needs
     ``pretrain_sem_steps`` when that epoch count is not 0."""
-    from pasco_tpu.data.semantic_kitti.params import CLASS_FREQUENCIES
+    from pasco_torch.data.semantic_kitti.params import CLASS_FREQUENCIES
 
     tcfg = train_config(cfg)
     if state is None:
-        net = build_net(tcfg)
+        net = build_net(tcfg, device)
         net.reset_parameters(torch.Generator().manual_seed(seed))
-        state = tstep.create_train_state(net.to(device), tcfg, lr_mode)
+        state = tstep.create_train_state(net, tcfg, lr_mode)
     dev = next(state.net.parameters()).device
     lw = {s: torch.as_tensor(v, device=dev) for s, v in tstep.labelweights_for(
         cfg, class_frequencies or CLASS_FREQUENCIES).items()}

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 import torch
 
-from pasco_tpu.core.config import OptimConfig
+from pasco_torch.core.config import OptimConfig
 
 
 def lr_schedule(cfg: OptimConfig, mode: str = "reference"):

@@ -20,8 +20,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from pasco_tpu.core.config import PaSCoConfig
-from pasco_tpu.data.semantic_kitti.collate import TargetBundle
+from pasco_torch.core.config import PaSCoConfig
+from pasco_torch.data.semantic_kitti.collate import TargetBundle
 from pasco_torch.loss.criterion import SubnetTargets, criterion_all_subnets
 from pasco_torch.loss.losses import compl_labelweights, compute_sem_compl_loss
 from pasco_torch.models.norm import commit_batch_stats

@@ -161,13 +161,13 @@ def train_profile(args) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import train_scenes
-    from pasco_tpu.core.config import PaSCoConfig
+    from pasco_torch.core.config import PaSCoConfig
     from pasco_torch import kernels
     from pasco_torch.models.norm import commit_batch_stats
     from pasco_torch.models.unet import build_net, scene_to_model_input
     from pasco_torch.training import step as tstep
     from pasco_torch.training.loop import train_config
-    from pasco_tpu.data.semantic_kitti.params import CLASS_FREQUENCIES
+    from pasco_torch.data.semantic_kitti.params import CLASS_FREQUENCIES
 
     dev = torch.device("cuda", 0)
     base = PaSCoConfig()
@@ -180,9 +180,9 @@ def train_profile(args) -> None:
           for s, v in tstep.labelweights_for(cfg, CLASS_FREQUENCIES).items()}
     cw = torch.as_tensor(tstep.class_weight_vector(
         cfg.model.n_classes, cfg.loss.no_object_weight), device=dev)
-    net = build_net(cfg)
+    net = build_net(cfg, dev)
     net.reset_parameters(torch.Generator().manual_seed(args.seed))
-    state = tstep.create_train_state(net.to(dev), cfg)
+    state = tstep.create_train_state(net, cfg)
 
     def step():
         tstep.train_step(state, inp, tgt, lw, cw, cfg, args.seed)
@@ -272,16 +272,15 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import make_scans
-    from pasco_tpu.core.config import PaSCoConfig
+    from pasco_torch.core.config import PaSCoConfig
     from pasco_torch.models.unet import build_net
 
     dev = torch.device("cuda", 0)
     cfg = PaSCoConfig()
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=args.n_infers))
     (_, inp), = make_scans(cfg, 1, dev, seed=args.seed)
-    net = build_net(cfg)
+    net = build_net(cfg, dev)
     net.reset_parameters(torch.Generator().manual_seed(args.seed))
-    net = net.to(dev)
 
     res = {}
     with torch.no_grad():

@@ -79,7 +79,7 @@ def reference_flat():
 
 
 def test_flax_tree_loads_strict(reference_flat):
-    net = build_net(tiny_f32_config())
+    net = build_net(tiny_f32_config(), device="cpu")
     sd = flax_to_torch(reference_flat)
     assert set(sd) == set(net.state_dict()), (
         sorted(set(sd) ^ set(net.state_dict()))[:10])
@@ -130,8 +130,8 @@ def test_seeded_init_matches_reference_families():
     """The port's own init (used on the card, where there is no JAX):
     same families and scales as the flax initializers."""
     cfg = tiny_f32_config()
-    a = build_net(cfg)
-    b = build_net(cfg)
+    a = build_net(cfg, device="cpu")
+    b = build_net(cfg, device="cpu")
     a.reset_parameters(torch.Generator().manual_seed(3))
     b.reset_parameters(torch.Generator().manual_seed(3))
     for (ka, va), (_, vb) in zip(a.state_dict().items(), b.state_dict().items()):

@@ -1,6 +1,8 @@
-"""The port imports torch and never JAX: every ``pasco_torch`` module (and
-``chip_smoke.py``) imports in a fresh interpreter with neither ``jax`` nor
-``flax`` in ``sys.modules`` afterwards."""
+"""The port imports torch and never JAX, and nothing of the JAX package:
+every ``pasco_torch`` module, ``chip_smoke.py`` and
+``scripts_torch/profile_forward.py`` import in a fresh interpreter with
+no ``jax``, ``jaxlib``, ``flax`` or ``pasco_tpu`` module in
+``sys.modules`` afterwards."""
 
 import os
 import subprocess
@@ -9,15 +11,19 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import pasco_torch
 names = [m.name for m in pkgutil.walk_packages(pasco_torch.__path__, "pasco_torch.")]
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+spec = importlib.util.spec_from_file_location("profile_forward",
+                                              "scripts_torch/profile_forward.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "pasco_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 15, names
+assert len(names) >= 30, names
 """
 
 

@@ -43,7 +43,7 @@ def both_outputs():
     jnet, lw, variables = init_reference(cfg, inp)
     flat = perturbed(flatten(variables), seed=1)
     jout = jax.jit(lambda v, i: jnet.apply(v, i, lw, train=False))(nest(flat), inp)
-    net = build_net(cfg)
+    net = build_net(cfg, device="cpu")
     net.load_state_dict(flax_to_torch(flat), strict=True)
     tin = ModelInput(*(torch.from_numpy(np.array(a)) for a in inp))
     with torch.no_grad():
@@ -143,7 +143,7 @@ def test_mimo_scene_inference_and_evaluator():
     cfg = tiny_f32_config(S)
     col = eval_scene(cfg, np.random.RandomState(0), n_points=1500, max_angle=10.0)
     assert (col.point_coords[col.point_mask, 0] == 2).any()
-    net = build_net(cfg)
+    net = build_net(cfg, device="cpu")
     net.reset_parameters(torch.Generator().manual_seed(0))
     res = run_scene_inference(net, scene_to_model_input(col, "cpu"), col, cfg)
     assert len(res["outputs"]) == S + 1

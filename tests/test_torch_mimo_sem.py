@@ -63,7 +63,7 @@ def test_trainer_pretrains_sem_first():
     cfg = tiny_config(n_infers=3).replace(optim=OptimConfig(lr=1e-3, warmup_steps=0))
     col = synthetic_batch(cfg, seed=3)
     freqs = {s: np.ones(cfg.model.n_classes) for s in (1, 2, 4)}
-    state = train(cfg, [col] * 2, class_frequencies=freqs, log=None)
+    state = train(cfg, [col] * 2, device="cpu", class_frequencies=freqs, log=None)
     assert [h["is_predict_panop"] for h in state.history] == [False, False]
     state = train(cfg, [col] * 2, class_frequencies=freqs, log=None, state=state,
                   pretrain_sem_steps=3)

@@ -28,7 +28,7 @@ def both_outputs():
     jnet, lw, variables = init_reference(cfg, inp)
     flat = perturbed(flatten(variables), seed=1)
     jout = jax.jit(lambda v, i: jnet.apply(v, i, lw, train=False))(nest(flat), inp)
-    net = build_net(cfg)
+    net = build_net(cfg, device="cpu")
     net.load_state_dict(flax_to_torch(flat), strict=True)
     tin = ModelInput(*(torch.from_numpy(np.array(a)) for a in inp))
     with torch.no_grad():
@@ -84,7 +84,7 @@ def test_output_shapes(both_outputs):
 def test_unported_modes_raise():
     """MC dropout is not ported: ``mc_dropout=True`` raises in both modes."""
     cfg = tiny_f32_config()
-    net = build_net(cfg)
+    net = build_net(cfg, device="cpu")
     inp = ModelInput(*(torch.from_numpy(np.array(a)) for a in make_input(cfg, rng=1)))
     for mode in (net.eval, net.train):
         mode()
@@ -106,7 +106,7 @@ def test_scene_inference_on_synthetic_scan():
     scene = make_scene(rng, scene_size=cfg.scene.scene_size, n_points=1500,
                        point_feat_dim=cfg.model.in_channels - 6)
     col = collate([process_scene(scene, None, rng)], cfg, rng=rng)
-    net = build_net(cfg)
+    net = build_net(cfg, device="cpu")
     net.reset_parameters(torch.Generator().manual_seed(0))
     res = run_scene_inference(net, scene_to_model_input(col, "cpu"), col, cfg)
     assert len(res["outputs"]) == 2

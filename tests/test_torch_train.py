@@ -258,7 +258,7 @@ def run_both_steps(cfg, col, is_predict_panop=True):
         jnp.asarray(cw_np))
 
     pcfg = cfg.replace(model=dataclasses.replace(cfg.model, remat=True))
-    net = build_net(pcfg)
+    net = build_net(pcfg, device="cpu")
     net.load_state_dict(flax_to_torch(flat), strict=True)
     state = tstep.create_train_state(net, pcfg)
     captured = []
@@ -426,7 +426,7 @@ def test_trainer_lowers_loss():
     cfg = tiny_config(n_infers=1).replace(optim=OptimConfig(lr=1e-3, warmup_steps=0))
     col = synthetic_batch(cfg, seed=3)
     freqs = {s: np.ones(cfg.model.n_classes) for s in (1, 2, 4)}
-    state = train(cfg, [col] * 5, class_frequencies=freqs, log=None)
+    state = train(cfg, [col] * 5, device="cpu", class_frequencies=freqs, log=None)
     losses = [h["total_loss"] for h in state.history]
     assert len(losses) == 5 and state.step == 5
     assert all(np.isfinite(losses)), losses
