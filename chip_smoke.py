@@ -11,13 +11,17 @@
    same inputs: the conv-like kernels in bf16 at mask-valid cells within
    ``2e-2 * max|ref| + 2e-2`` (bf16 output rounding and another summation
    order) with exact zeros at invalid cells, the extraction bit-exact;
-   each with its median time, the plain version's, one library call's
-   where one PyTorch call computes the same function (CUDA events), and
-   the bound from this run's inputs (:func:`bound`).  The conv kernel runs
-   at every main-path shape, s1/s2/s4/s8 on the scan's occupancy and on
-   the near-dense decoder mask (:func:`conv_phase`).  The
-   up-preamble runs a second case whose bound comes from the deconv path,
-   and shows that a plain run with a broken deconv would fail it;
+   each with its time per call (:func:`time_ms`), the plain version's,
+   one library call's where one PyTorch call computes the same function,
+   and the bound from this run's inputs (:func:`bound`).  The conv kernel
+   runs at every main-path shape, s1/s2/s4/s8 on the scan's occupancy and
+   on the near-dense decoder mask (:func:`conv_phase`); the down step at
+   enc_s2/s4/s8 on the scan's occupancy (:func:`down_phase`); the
+   up-preamble at dec_s4/s2/s1, near dense and sparse, each with two more
+   value sets whose bounds come from the deconv path and from the
+   coordinate channels near the origin, and shows that a plain run with a
+   broken deconv, or coordinates one cell off, would fail them
+   (:func:`up_phase`);
    the column-sparse conv (row 7) runs through its own entry point on the
    scan's s1 occupancy against cuDNN in f32 (:func:`column_conv_phase`);
 4. drives the flagship forward (``PaSCoConfig()``, n_infers=1, full
@@ -103,17 +107,23 @@ STRUCTURALLY_ZERO = re.compile(
 
 
 def time_ms(fn, reps=5):
-    """Median milliseconds of ``fn()`` from CUDA events."""
+    """Median milliseconds per call of ``fn()``: CUDA events around 10
+    back-to-back calls, ``reps`` times.  Back to back, a call's host work
+    (the wrapper's checks and launch) overlaps the device work of the call
+    before, as on the model's path; timed alone, a call of a small kernel
+    would read as much host work as device work."""
+    batch = 10
     fn()
     samples = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        samples.append(a.elapsed_time(b))
+        samples.append(a.elapsed_time(b) / batch)
     return statistics.median(samples)
 
 
@@ -195,12 +205,13 @@ def scan_masks(cfg, inp):
     return box, occ, bbox_mask(box, 1, inp.global_min, inp.global_max)
 
 
-def _compare(name, got, ref, mask):
-    """Conv-like check at valid cells; exact zeros at invalid cells.
-    Returns (max|d|, bound)."""
+def _compare(name, got, ref, mask, region=None):
+    """Conv-like check at valid cells (those in ``region`` where given);
+    exact zeros at invalid cells.  Returns (max|d|, bound)."""
     g, r = got.float(), ref.float()
-    err = (g - r)[mask].abs().max().item() if mask.any() else 0.0
-    bound = TOL_REL * r[mask].abs().max().item() + TOL_ABS
+    sel = mask if region is None else mask & region
+    err = (g - r)[sel].abs().max().item() if sel.any() else 0.0
+    bound = TOL_REL * r[sel].abs().max().item() + TOL_ABS
     print(f"check {name}: max|d| {err:.4g}, bound {bound:.4g}", flush=True)
     if not err <= bound:
         raise AssertionError(f"{name}: max|d| {err} > {bound}")
@@ -296,19 +307,10 @@ def conv_phase(cfg, inp, keep_ref):
                 **main, cases=out)
 
 
-def kernel_phases(cfg, inp, gen):
-    """Each kernel against its plain version at main-path shapes."""
-    from pasco_torch.ops import deconv, down, extract
-    from pasco_torch.ops.dense_ops import maxpool2_mask, upsample2_mask
-
-    dev = inp.point_feats.device
-    bf = torch.bfloat16
-    f = cfg.model.f
-    box, occ1, bbox1 = scan_masks(cfg, inp)
-    X, Z, Y = occ1.shape
-
+def _rand_fns(gen, dev):
+    """Seeded bf16 normals, f32 uniform vectors and a masking helper."""
     def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(device=dev, dtype=bf)
+        return (torch.randn(shape, generator=gen) * scale).to(device=dev, dtype=torch.bfloat16)
 
     def vec(n, lo=-0.1, hi=0.1):
         return (torch.rand((n,), generator=gen) * (hi - lo) + lo).to(dev)
@@ -316,93 +318,202 @@ def kernel_phases(cfg, inp, gen):
     def masked(x, m):
         return torch.where(m[..., None], x, torch.zeros((), dtype=x.dtype, device=dev))
 
+    return randn, vec, masked
+
+
+def _report(name, label, shape, t, detail):
+    kind = "compute" if t["bound_by"] == "operations" else "memory"
+    print(f"{name} {label} {shape}, {detail}: {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+          f"library_ms {t['library_ms']:.3f}, bound_ms {t['bound_ms']:.3f} ({kind}), "
+          f"{t['bound_ms'] / t['ms']:.1%} of the bound", flush=True)
+
+
+def down_phase(cfg, inp, gen):
+    """Kernel 2 (``down2_fused``) at every main-path shape: enc_s2, s4 and
+    s8 on the scan's occupancy (the encoder's masks), with the flagship
+    widths.  Each against the plain version (the bound of :func:`_compare`,
+    exact zeros at invalid cells), with its time, the plain version's, the
+    library call's (the stride-2 ``F.conv3d`` alone, ``channels_last_3d``)
+    and the bound from this case's valid cells.  Returns the JSON row: the
+    numbers of enc_s2, every case under ``cases``."""
+    from pasco_torch.ops import down
+    from pasco_torch.ops.dense_ops import maxpool2_mask
+
+    dev = inp.point_feats.device
+    randn, vec, masked = _rand_fns(gen, dev)
+    fm = cfg.model.f_maps
+    _, occ, _ = scan_masks(cfg, inp)
+    out, errs = [], []
+    for i, sc in enumerate((2, 4, 8)):
+        ci, co = fm[i], fm[i + 1]
+        X, Z, Y = occ.shape
+        m2 = maxpool2_mask(occ)
+        x = masked(randn(X, Z, Y, ci), occ)
+        w = randn(8, ci, co, scale=(8 * ci) ** -0.5)
+        args = (x, occ, m2, w, vec(co), (vec(co, 0.5, 1.5), vec(co)),
+                (vec(co, 0.5, 1.5), vec(co)))
+        tiles = down.down_tiles(m2)
+        got = down.down2_fused(*args, tiles=tiles)
+        label = f"enc_s{sc} scan occupancy"
+        errs.append(_compare(f"down2_fused {label}", got, down.down2_fused_plain(*args), m2)[0])
+        # library: the stride-2 conv alone (taps (ix, iy, iz) -> [Co, Ci, kX, kZ, kY])
+        xl = x.permute(3, 0, 1, 2)[None]
+        wl = w.reshape(2, 2, 2, ci, co).permute(4, 3, 0, 2, 1).contiguous(
+            memory_format=torch.channels_last_3d)
+        n_valid = int(m2.sum())
+        t = timing_fields(time_ms(lambda: down.down2_fused(*args, tiles=tiles)),
+                          time_ms(lambda: down.down2_fused_plain(*args)),
+                          time_ms(lambda: F.conv3d(xl, wl, stride=2)),
+                          n_valid * 8 * ci * co * 2,
+                          rows_bytes(x, occ.sum())
+                          + nbytes(occ, m2, w, got, args[4], *args[5], *args[6]))
+        _report("down2_fused", label, (X, Z, Y, ci, co), t,
+                f"{n_valid} of {m2.numel()} output cells valid")
+        out.append(dict(case=label, shape=[X, Z, Y, ci, co], **t))
+        occ = m2
+        del x, got, args
+    return dict(name="down2_fused", source="pasco_torch/csrc/down2_fused.cu",
+                replaces="pasco_tpu/ops/pallas_down.py:244", max_abs_err=max(errs),
+                **{k: v for k, v in out[0].items() if k not in ("case", "shape")}, cases=out)
+
+
+def up_phase(cfg, inp, gen):
+    """Kernel 3 (``up_preamble``) at every main-path shape: dec_s4, s2 and
+    s1 with the flagship widths, each twice: near dense (the child set
+    ``upsample2(maxpool2(bbox)) & bbox``, the random-init path) and sparse
+    (``parent_keep`` the scan's occupancy max-pooled to the parent scale,
+    the trained regime's stand-in); the union adds the scan's occupancy at
+    the child scale (the encoder's skip mask).  Each case runs three value
+    sets against the plain version: "coords + skip" (the absolute
+    coordinate channels, cells up to ~300 from the origin, dominate |r|, so
+    its bound checks the union path but is too coarse for the deconv
+    branch or a coordinate one cell off); "deconv" (wr's coordinate rows
+    zero, a unit-variance deconv, so the bound comes from the deconv/BN
+    path); and "coords" (the box corner moved so that a generated child
+    sits at the origin, unit-variance coordinate rows of wr, the deconv and
+    the skip scaled down, checked at the cells within 2 of the origin on
+    every axis, where a coordinate one cell off moves r by more than the
+    bound).  A plain run with the child-offset weights rolled, or the
+    parent product dropped, must break the "deconv" bound, and one with the
+    coordinates one cell off on any axis the "coords" bound, else the check
+    is void.  Times and bounds from the "coords + skip" set; library: the
+    deconv alone, one ``F.conv_transpose3d``.  Returns the JSON row: the
+    numbers of dec_s1 near dense, every case under ``cases``."""
+    from pasco_torch.core.sparse import Box
+    from pasco_torch.ops import deconv
+    from pasco_torch.ops.dense_ops import (bbox_mask, cell_coords, maxpool2_mask,
+                                           upsample2_mask)
+
+    dev = inp.point_feats.device
+    randn, vec, masked = _rand_fns(gen, dev)
+    fm = cfg.model.f_maps
+    box, occ, _ = scan_masks(cfg, inp)
+    occs = {1: occ}
+    for sc in (2, 4, 8):
+        occs[sc] = maxpool2_mask(occs[sc // 2])
+    out, errs = [], []
+    for i, sc in ((2, 4), (1, 2), (0, 1)):   # dec_s4, dec_s2, dec_s1
+        ci, co = fm[i + 1], fm[i]
+        bbox = bbox_mask(box, sc, inp.global_min, inp.global_max)
+        for kind, pkeep in (("near dense", maxpool2_mask(bbox)), ("sparse", occs[2 * sc])):
+            label = f"dec_s{sc} {kind}"
+            child = upsample2_mask(pkeep) & bbox
+            union = child | occs[sc]
+            X, Z, Y = child.shape
+            parent = randn(X // 2, Z // 2, Y // 2, ci)
+            skip = masked(randn(X, Z, Y, co), occs[sc])
+            bd, br = vec(co), vec(co)
+            bn = ((vec(co, 0.5, 1.5), vec(co)), (vec(co + 3, 0.5, 1.5), vec(co + 3)))
+            wr_d = randn(co + 3, co, scale=co ** -0.5)
+            wr_d[co:] = 0
+            wd_d = randn(8, ci, co, scale=ci ** -0.5)
+            wr_c = randn(co + 3, co, scale=co ** -0.5)
+            wr_c[co:] = randn(3, co)
+            # "coords": the origin at a generated child, checked where
+            # |u| <= 2 on every axis
+            c0 = child.nonzero()[int(child.sum()) // 2]          # (x, z, y)
+            box_c = Box.create(-sc * c0[[0, 2, 1]], box.extent)
+            near = (cell_coords(box_c, sc).abs() <= 2 * sc).all(-1)
+
+            def up_args(skip_, wd_, wr_, box_=box):
+                return (parent, pkeep, child, union, skip_, box_, sc, wd_, bd, *bn, wr_, br)
+
+            sets = [("coords + skip", up_args(skip, randn(8, ci, co, scale=(8 * ci) ** -0.5),
+                                              randn(co + 3, co, scale=0.1)), None),
+                    ("deconv", up_args(skip * 0.1, wd_d, wr_d), None),
+                    ("coords", up_args(skip * 0.01, wd_d * 0.01, wr_c, box_c), near)]
+            tiles = deconv.up_tiles(union)
+            refs, tols = {}, {}
+            for vlabel, args, region in sets:
+                refs[vlabel] = deconv.up_preamble_plain(*args)
+                err, tols[vlabel] = _compare(
+                    f"up_preamble {label}, {vlabel}" + ("" if region is None else " (|u| <= 2)"),
+                    deconv.up_preamble(*args, tiles=tiles), refs[vlabel], union, region)
+                errs.append(err)
+            guards = [("deconv", "child offsets rolled", None,
+                       up_args(skip * 0.1, wd_d.roll(1, 0), wr_d)),
+                      ("deconv", "parent product dropped", None,
+                       up_args(skip * 0.1, torch.zeros_like(wd_d), wr_d))]
+            for j, axis in enumerate("xyz"):
+                off = torch.zeros(3, dtype=torch.int32, device=dev)
+                off[j] = sc
+                guards.append(("coords", f"{axis} one cell off", near, up_args(
+                    skip * 0.01, wd_d * 0.01, wr_c, Box.create(box_c.minimum + off, box.extent))))
+            for vlabel, glabel, region, bad_args in guards:
+                bad = deconv.up_preamble_plain(*bad_args)
+                sel = union if region is None else union & region
+                miss = (bad.float() - refs[vlabel].float())[sel].abs().max().item()
+                tol = tols[vlabel]
+                print(f"check up_preamble {label} {vlabel} resolution, {glabel}: max|d| "
+                      f"{miss:.4g} > bound {tol:.4g}", flush=True)
+                if not miss > tol:
+                    raise AssertionError(f"up_preamble check cannot see a wrong {vlabel} path "
+                                         f"({label}, {glabel}: {miss} <= {tol})")
+            del refs, bad
+            args = sets[0][1]
+            got = deconv.up_preamble(*args, tiles=tiles)
+            # library: the generative deconv alone, one F.conv_transpose3d
+            pl = masked(parent, pkeep).permute(3, 0, 1, 2)[None]
+            wtl = args[7].reshape(2, 2, 2, ci, co).permute(3, 4, 0, 2, 1).contiguous(
+                memory_format=torch.channels_last_3d)
+            n_child = int(child.sum())
+            # the deconv and the resize at the children; the parent at
+            # parent_keep, the skip at the union, the masks, the weights and
+            # the whole output once
+            t = timing_fields(time_ms(lambda: deconv.up_preamble(*args, tiles=tiles)),
+                              time_ms(lambda: deconv.up_preamble_plain(*args)),
+                              time_ms(lambda: F.conv_transpose3d(pl, wtl, stride=2)),
+                              n_child * (ci + co + 3) * co * 2,
+                              rows_bytes(parent, pkeep.sum()) + rows_bytes(skip, union.sum())
+                              + nbytes(pkeep, child, union, got, args[7], args[-2]))
+            _report("up_preamble", label, (X, Z, Y, ci, co), t,
+                    f"{n_child} children, {int(union.sum())} union cells, "
+                    f"{int(tiles.n_active)} of {tiles.n_tiles} tiles")
+            out.append(dict(case=label, shape=[X, Z, Y, ci, co], **t))
+            del parent, skip, got, pl, sets, args
+    main = next(c for c in out if c["case"] == "dec_s1 near dense")
+    return dict(name="up_preamble", source="pasco_torch/csrc/up_preamble.cu",
+                replaces="pasco_tpu/ops/pallas_deconv.py:306", max_abs_err=max(errs),
+                **{k: v for k, v in main.items() if k not in ("case", "shape")}, cases=out)
+
+
+def kernel_phases(cfg, inp, gen):
+    """Each kernel against its plain version at main-path shapes."""
+    from pasco_torch.ops import extract
+
+    dev = inp.point_feats.device
+    f = cfg.model.f
+    box, occ1, bbox1 = scan_masks(cfg, inp)
+    X, Z, Y = occ1.shape
+    randn, _, _ = _rand_fns(gen, dev)
+
     rows = []
     keep_ref = bbox1 & (torch.rand((X, Z, Y), generator=gen) < 0.7).to(dev)
 
     rows.append(conv_phase(cfg, inp, keep_ref))
 
-    # --- kernel 2: down2_fused at enc_s2 ---------------------------------
-    xd = masked(randn(X, Z, Y, f), occ1)
-    m2 = maxpool2_mask(occ1)
-    wd = randn(8, f, 2 * f, scale=(8 * f) ** -0.5)
-    args = (xd, occ1, m2, wd, vec(2 * f), (vec(2 * f, 0.5, 1.5), vec(2 * f)),
-            (vec(2 * f, 0.5, 1.5), vec(2 * f)))
-    tiles = down.down_tiles(m2)
-    got = down.down2_fused(*args, tiles=tiles)
-    err, _ = _compare("down2_fused", got, down.down2_fused_plain(*args), m2)
-    # library: the stride-2 conv alone (taps (ix, iy, iz) -> [Co, Ci, kX, kZ, kY])
-    xl = xd.permute(3, 0, 1, 2)[None]
-    wl = wd.reshape(2, 2, 2, f, 2 * f).permute(4, 3, 0, 2, 1).contiguous(
-        memory_format=torch.channels_last_3d)
-    rows.append(dict(
-        name="down2_fused", source="pasco_torch/csrc/down2_fused.cu",
-        replaces="pasco_tpu/ops/pallas_down.py:244", max_abs_err=err,
-        **timing_fields(time_ms(lambda: down.down2_fused(*args, tiles=tiles)),
-                        time_ms(lambda: down.down2_fused_plain(*args)),
-                        time_ms(lambda: F.conv3d(xl, wl, stride=2)),
-                        int(m2.sum()) * 8 * f * 2 * f * 2,
-                        rows_bytes(xd, occ1.sum())
-                        + nbytes(occ1, m2, wd, got, args[4], *args[5], *args[6]))))
-
-    # --- kernel 3: up_preamble at dec_s1, two cases ------------------------
-    # "coords + skip": the absolute-coordinate channels (cells up to ~300
-    # from the origin) dominate |r|, so this bound checks the coordinate
-    # and union paths but is too coarse for the deconv branch.
-    # "deconv": wr's coordinate rows are zero and the deconv has unit
-    # variance, so the bound comes from the deconv/BN path; a plain run with
-    # the child-offset weights rolled, or with the parent product dropped,
-    # must break that bound, else the check is void.
-    pkeep = maxpool2_mask(bbox1)
-    parent = randn(X // 2, Z // 2, Y // 2, 2 * f)
-    child = upsample2_mask(pkeep) & bbox1
-    union = child | occ1
-    skip = masked(randn(X, Z, Y, f), occ1)
-    skip_d = skip * 0.1
-    bd, br = vec(f), vec(f)
-    bn = ((vec(f, 0.5, 1.5), vec(f)), (vec(f + 3, 0.5, 1.5), vec(f + 3)))
-    wr_d = randn(f + 3, f, scale=f ** -0.5)
-    wr_d[f:] = 0
-
-    def up_args(skip_, wd_, wr_):
-        return (parent, pkeep, child, union, skip_, box, 1, wd_, bd, *bn, wr_, br)
-
-    wd_d = randn(8, 2 * f, f, scale=(2 * f) ** -0.5)
-    up_cases = [
-        ("coords + skip", up_args(skip, randn(8, 2 * f, f, scale=(16 * f) ** -0.5),
-                                  randn(f + 3, f, scale=0.1))),
-        ("deconv", up_args(skip_d, wd_d, wr_d)),
-    ]
-    tiles = deconv.up_tiles(union)
-    errs = []
-    for label, args in up_cases:
-        ref = deconv.up_preamble_plain(*args)
-        err, tol = _compare(f"up_preamble {label}",
-                            deconv.up_preamble(*args, tiles=tiles), ref, union)
-        errs.append(err)
-    for label, wd_bad in (("child offsets rolled", wd_d.roll(1, 0)),
-                          ("parent product dropped", torch.zeros_like(wd_d))):
-        bad = deconv.up_preamble_plain(*up_args(skip_d, wd_bad, wr_d))
-        miss = (bad.float() - ref.float())[union].abs().max().item()
-        print(f"check up_preamble deconv resolution, {label}: max|d| "
-              f"{miss:.4g} > bound {tol:.4g}", flush=True)
-        if not miss > tol:
-            raise AssertionError(f"up_preamble check cannot see a wrong deconv "
-                                 f"({label}: {miss} <= {tol})")
-    args = up_cases[0][1]
-    got = deconv.up_preamble(*args, tiles=tiles)
-    # library: the generative deconv alone, one F.conv_transpose3d
-    pl = masked(parent, pkeep).permute(3, 0, 1, 2)[None]
-    wtl = args[7].reshape(2, 2, 2, 2 * f, f).permute(3, 4, 0, 2, 1).contiguous(
-        memory_format=torch.channels_last_3d)
-    rows.append(dict(
-        name="up_preamble", source="pasco_torch/csrc/up_preamble.cu",
-        replaces="pasco_tpu/ops/pallas_deconv.py:306", max_abs_err=max(errs),
-        **timing_fields(time_ms(lambda: deconv.up_preamble(*args, tiles=tiles)),
-                        time_ms(lambda: deconv.up_preamble_plain(*args)),
-                        time_ms(lambda: F.conv_transpose3d(pl, wtl, stride=2)),
-                        int(child.sum()) * 2 * f * f * 2 + int(union.sum()) * (f + 3) * f * 2,
-                        rows_bytes(parent, pkeep.sum()) + rows_bytes(args[4], union.sum())
-                        + nbytes(pkeep, child, union, got, args[7], args[-2]))))
+    rows.append(down_phase(cfg, inp, gen))
+    rows.append(up_phase(cfg, inp, gen))
 
     # --- kernel 4: stream_extract, bit-exact ------------------------------
     cases = [

@@ -1,9 +1,11 @@
-// Shared helpers of the port's CUDA kernels (bf16 storage, f32 math).
+// Shared helpers of the port's CUDA kernels (bf16 storage, f32 math), and
+// the Hopper PTX pieces of the tensor-core kernels (masked_conv3,
+// down2_fused, up_preamble): cp.async, ldmatrix, wgmma and its
+// shared-memory descriptors.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace pasco {
@@ -12,13 +14,134 @@ __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v
 __device__ __forceinline__ __nv_bfloat16 tobf(float v) { return __float2bfloat16(v); }
 // Round an f32 value through bf16 (where the TPU kernel stores bf16).
 __device__ __forceinline__ float rbf(float v) { return bf(tobf(v)); }
-__device__ __forceinline__ float leaky(float v) { return v > 0.f ? v : 0.01f * v; }
+// The same for two values with one conversion.
+__device__ __forceinline__ float2 rbf2(float x, float y) {
+  return __bfloat1622float2(__floats2bfloat162_rn(x, y));
+}
+__device__ __forceinline__ float leaky(float v) { return fmaxf(v, 0.01f * v); }
 
-// 16x16x16 bf16 fragments with f32 accumulation (mma.sync tensor cores).
-using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
-                                     __nv_bfloat16, nvcuda::wmma::row_major>;
-using FragB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16,
-                                     __nv_bfloat16, nvcuda::wmma::row_major>;
-using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte cp.async; `bytes` < 16 zero-fills the rest (0: all zeros).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int NPEND>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(NPEND) : "memory");
+}
+// Writes by the generic proxy (cp.async, st.shared) made visible to the
+// async proxy that wgmma reads its B operand through.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15) over the `n` threads that name it (a warpgroup).
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Byte offset of 16-byte chunk `c` of a 128-byte row `row` under the XOR
+// swizzle that wgmma's 128-byte layout and conflict-free ldmatrix use.
+__device__ __forceinline__ uint32_t swz(int row, int c) {
+  return row * 128 + (((c ^ row) & 7) << 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int NPEND>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(NPEND) : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma.m64nNk16, f32 += bf16 * bf16, A from registers, B by descriptor;
+// TB = 1 reads B N-major, TB = 0 K-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (N == 64) wgmma_n64<TB>(d, a, desc);
+  else wgmma_n128<TB>(d, a, desc);
+}
+
+// After wgmma_wait: keeps the compiler from reading the accumulators
+// before the wait (the wait names no register).
+template <int N>
+__device__ __forceinline__ void acc_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// B operand slab of 64 K rows x N columns (N a multiple of 64) from a
+// row-major bf16 matrix (`src` at its [k0][n0], row stride `ld`), stored
+// N-major for wgmma with TB = 1: 64-column atoms of 64 rows x 128 B, 8 KB
+// apart, row k at k * 128 with its 16-byte chunks swizzled (swz).  Its
+// descriptor for k16 step ph: smem_desc(dst + ph * 2048, 8192, 1024).
+template <int N>
+__device__ __forceinline__ void cp_slab_nmajor(uint32_t dst, const __nv_bfloat16* src, int ld,
+                                               int tid, int nthreads) {
+  for (int v = tid; v < 64 * N / 8; v += nthreads) {
+    const int k = v / (N / 8), c = v % (N / 8);
+    cp_async16(dst + (c >> 3) * 8192 + swz(k, c), src + (long long)k * ld + c * 8, 16);
+  }
+}
+
+// The A fragment of wgmma.m64nNk16 for k16 step `ph`, packed from the f32
+// accumulator of an m64nN product (columns 16 ph .. 16 ph + 15): d[4j + 2h
+// + e] is row g + 8h, column 8j + 2(lane % 4) + e, which is where the A
+// fragment keeps the same element.
+template <int NACC>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[NACC], int ph) {
+  auto pk = [](float x, float y) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&v);
+  };
+  a[0] = pk(d[8 * ph + 0], d[8 * ph + 1]);
+  a[1] = pk(d[8 * ph + 2], d[8 * ph + 3]);
+  a[2] = pk(d[8 * ph + 4], d[8 * ph + 5]);
+  a[3] = pk(d[8 * ph + 6], d[8 * ph + 7]);
+}
 
 }  // namespace pasco

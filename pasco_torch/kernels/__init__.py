@@ -45,9 +45,9 @@ _SIGNATURES = {
     # x, mask, w, bias, aff_a, aff_c, skip, out, tile_ids, n_active,
     # X, Z, Y, C, flip, relu_in, relu_out, n_tiles, stream
     "pasco_masked_conv3": [P] * 10 + [I] * 8 + [P],
-    # x, mask_in, mask_out, w, bias, a1, c1, a2, c2, out, tile_ids,
-    # n_active, X, Z, Y, Ci, Co, n_tiles, stream
-    "pasco_down2_fused": [P] * 12 + [I] * 6 + [P],
+    # x, mask_in, mask_out, w, bias, a1, c1, a2, c2, out, ids, n_valid,
+    # X, Z, Y, Ci, Co, stream
+    "pasco_down2_fused": [P] * 12 + [I] * 5 + [P],
     # parent, parent_keep, child_mask, union_mask, skip, wd, bd, a1, c1,
     # a2, c2, wr, br, box_min, out, tile_ids, n_active,
     # X2, Z2, Y2, Ci, Co, scale, n_tiles, stream

@@ -22,18 +22,21 @@ import torch.nn.functional as F
 
 from pasco_torch import kernels
 from pasco_torch.core.sparse import Box
-from pasco_torch.ops.conv import Tiles
+from pasco_torch.ops.conv import Tiles, _active_list
 from pasco_torch.ops.dense_ops import cell_coords, deconv2_dense, maxpool2_mask
-from pasco_torch.ops.down import row_tiles
 
-ROWS = 32    # parents per block (kernel constant)
+ROWS = 64    # parents per tile (kernel constant)
+WIDTHS = ((128, 64), (256, 128), (256, 256))   # (Ci, Co) the kernel takes
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
 def up_tiles(union_mask: torch.Tensor) -> Tiles:
-    """Parent tiles of 32 flat parents with any child in the union mask."""
-    return row_tiles(maxpool2_mask(union_mask), ROWS)
+    """Tiles of 64 flat parents with any child in the union mask (active
+    first, their count on the device)."""
+    flat = maxpool2_mask(union_mask).reshape(-1)
+    pad = (-flat.numel()) % ROWS
+    return _active_list(F.pad(flat.to(torch.uint8), (0, pad)).reshape(-1, ROWS).any(1))
 
 
 def up_preamble_plain(parent, parent_keep, child_mask, union_mask, skip, box,
@@ -86,13 +89,10 @@ def up_preamble(
     kernels.require(skip, "skip", torch.bfloat16, (X, Z, Y, co), dev)
     if tuple(wd.shape) != (8, ci, co) or tuple(wr.shape) != (co + 3, co):
         raise ValueError(f"up_preamble: wd {tuple(wd.shape)}, wr {tuple(wr.shape)}")
-    if ci % 16 or co % 16:
-        raise ValueError(f"up_preamble needs Ci, Co % 16 == 0, got {ci}, {co}")
+    if (ci, co) not in WIDTHS:
+        raise ValueError(f"up_preamble takes (Ci, Co) in {WIDTHS}, got {(ci, co)}")
     f32 = dict(device=dev, dtype=torch.float32)
-    wd16 = wd.to(device=dev, dtype=torch.bfloat16).contiguous()
-    # resize weight padded with zero rows to a 16-multiple K (Co + 16)
-    wr16 = torch.zeros((co + 16, co), dtype=torch.bfloat16, device=dev)
-    wr16[: co + 3] = wr.to(device=dev, dtype=torch.bfloat16)
+    wd16, wr16 = (w.to(device=dev, dtype=torch.bfloat16).contiguous() for w in (wd, wr))
     bd32, a1, c1, a2, c2, br32 = (
         v.to(**f32).contiguous()
         for v in (bd, *bn_up, *bn_resize, br)
@@ -100,7 +100,9 @@ def up_preamble(
     box_min = box.minimum.to(device=dev, dtype=torch.int32).contiguous()
     if tiles is None:
         tiles = up_tiles(union_mask)
-    out = torch.zeros((X, Z, Y, co), dtype=torch.bfloat16, device=dev)
+    if tiles.n_tiles != -(-(X2 * Z2 * Y2) // ROWS):
+        raise ValueError(f"up_preamble: {tiles.n_tiles} tiles for {X2 * Z2 * Y2} parents")
+    out = torch.empty((X, Z, Y, co), dtype=torch.bfloat16, device=dev)
     err = kernels.lib().pasco_up_preamble(
         parent.data_ptr(), parent_keep.data_ptr(), child_mask.data_ptr(),
         union_mask.data_ptr(), skip.data_ptr(), wd16.data_ptr(),

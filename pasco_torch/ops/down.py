@@ -16,25 +16,26 @@ import torch
 import torch.nn.functional as F
 
 from pasco_torch import kernels
-from pasco_torch.ops.conv import Tiles, _active_list
+from pasco_torch.ops.conv import Tiles
 from pasco_torch.ops.dense_ops import down2_dense
-
-ROWS = 128    # output cells per block (kernel constant)
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
-
-def row_tiles(mask: torch.Tensor, rows: int) -> Tiles:
-    """Tiles of ``rows`` consecutive flat cells with any valid cell."""
-    flat = mask.reshape(-1)
-    pad = (-flat.numel()) % rows
-    active = F.pad(flat.to(torch.uint8), (0, pad)).reshape(-1, rows).any(1)
-    return _active_list(active)
+WIDTHS = ((64, 128), (128, 256), (256, 256))   # (Ci, Co) the kernel takes
 
 
 def down_tiles(mask_out: torch.Tensor) -> Tiles:
-    """Tiles of 128 flat output cells with any valid output cell."""
-    return row_tiles(mask_out, ROWS)
+    """The valid output cells, compacted on the device: their flat
+    ``[X/2, Z/2, Y/2]`` indices first, ascending, and their count (no host
+    sync).  The kernel runs its products on these cells only."""
+    flat = mask_out.reshape(-1)
+    n = flat.numel()
+    pos = torch.cumsum(flat, 0, dtype=torch.int32) - 1
+    dump = torch.full((), n, dtype=torch.int32, device=flat.device)
+    ids = torch.zeros(n + 1, dtype=torch.int32, device=flat.device)
+    ids.scatter_(0, torch.where(flat, pos, dump).long(),
+                 torch.arange(n, dtype=torch.int32, device=flat.device))
+    return Tiles(ids[:n], flat.sum(dtype=torch.int32).reshape(1), n)
 
 
 def down2_fused_plain(x, mask_in, mask_out, weight, bias, bn1: Pair, bn2: Pair):
@@ -68,19 +69,18 @@ def down2_fused(
     kernels.require(mask_out, "mask_out", torch.bool, (X // 2, Z // 2, Y // 2), dev)
     if tuple(weight.shape) != (8, ci, co) or X % 2 or Z % 2 or Y % 2:
         raise ValueError(f"down2_fused: weight {tuple(weight.shape)}, x {tuple(x.shape)}")
-    if ci % 32 or co % 64:
-        raise ValueError(f"down2_fused needs Ci % 32 == 0 and Co % 64 == 0, got {ci}, {co}")
+    if (ci, co) not in WIDTHS:
+        raise ValueError(f"down2_fused takes (Ci, Co) in {WIDTHS}, got {(ci, co)}")
     f32 = dict(device=dev, dtype=torch.float32)
     w = weight.to(device=dev, dtype=torch.bfloat16).contiguous()
     vecs = [v.to(**f32).contiguous() for v in (bias, *bn1, *bn2)]
     if tiles is None:
         tiles = down_tiles(mask_out)
-    out = torch.zeros((X // 2, Z // 2, Y // 2, co), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((X // 2, Z // 2, Y // 2, co), dtype=torch.bfloat16, device=dev)
     err = kernels.lib().pasco_down2_fused(
         x.data_ptr(), mask_in.data_ptr(), mask_out.data_ptr(), w.data_ptr(),
         *(v.data_ptr() for v in vecs), out.data_ptr(), tiles.ids.data_ptr(),
-        tiles.n_active.data_ptr(), X, Z, Y, ci, co, tiles.n_tiles,
-        kernels.stream_ptr(x),
+        tiles.n_active.data_ptr(), X, Z, Y, ci, co, kernels.stream_ptr(x),
     )
     kernels.check(err, "down2_fused")
     kernels.LAUNCHES["down2_fused"] += 1

@@ -140,35 +140,80 @@ def test_conv3_dx_flip_matches_transposed_weight(dev, ch):
     _check(got, conv.masked_conv3_plain(dym, m, w.flip(0).transpose(1, 2)), m)
 
 
+def _nan_pool(shape, dev):
+    """Leave a NaN-filled block of ``shape`` (bf16) in the caching
+    allocator, so that a kernel's ``torch.empty`` output of that size
+    likely starts as NaNs: a cell the kernel fails to write then shows."""
+    torch.full(shape, float("nan"), dtype=torch.bfloat16, device=dev)
+
+
+# Down cases: a ragged last item (135 output cells), an empty and a full
+# mask, and a box whose items (288 of 64 valid cells, 144 zero items)
+# outnumber the resident CTAs at every width (264 at Co = 128, 132 at 256),
+# once dense and once at ~4% valid output cells, as the scan's occupancy.
+DOWN_CASES = [((6, 10, 18), 0.3), ((6, 10, 18), 0.0), ((6, 10, 18), 1.0),
+              ((96, 16, 96), 0.5), ((96, 16, 96), 0.006)]
+
+
+@pytest.mark.parametrize("shape,p", DOWN_CASES)
 @pytest.mark.parametrize("ci,co", [(64, 128), (128, 256), (256, 256)])
-def test_down2_fused_matches_plain(dev, ci, co):
+def test_down2_fused_matches_plain(dev, shape, p, ci, co):
     g = _gen()
-    m = _mask(g, dev, (6, 10, 18), 0.3)
+    m = _mask(g, dev, shape, p)
     m2 = maxpool2_mask(m)
-    x = _randn(g, dev, 6, 10, 18, ci)
+    x = _randn(g, dev, *shape, ci)
     w = _randn(g, dev, 8, ci, co, scale=(8 * ci) ** -0.5)
     vec = lambda lo: (torch.rand(co, generator=g) + lo).to(dev)  # noqa: E731
     args = (x, m, m2, w, vec(-0.5), (vec(0.5), vec(-0.5)), (vec(0.5), vec(-0.5)))
+    before = kernels.LAUNCHES["down2_fused"]
+    _nan_pool((*m2.shape, co), dev)
     _check(down.down2_fused(*args), down.down2_fused_plain(*args), m2)
+    assert kernels.LAUNCHES["down2_fused"] == before + 1
 
 
+def test_down2_fused_refuses_other_widths(dev):
+    m = torch.ones((4, 4, 4), dtype=torch.bool, device=dev)
+    for ci, co in ((32, 64), (64, 64), (256, 128)):
+        x = torch.zeros((4, 4, 4, ci), dtype=torch.bfloat16, device=dev)
+        w = torch.zeros((8, ci, co), dtype=torch.bfloat16, device=dev)
+        v = torch.zeros(co, device=dev)
+        with pytest.raises(ValueError):
+            down.down2_fused(x, m, maxpool2_mask(m), w, v, (v, v), (v, v))
+
+
+# Up cases (parent box; keep, child and skip densities): a ragged last tile
+# (66 parents), an empty and a full union, and a box of 144 128-parent
+# tiles (more than the 132 resident CTAs), once near dense and once sparse
+# (most tiles inactive: the kernel writes their zeros).
+UP_CASES = [((3, 2, 11), 0.6, 0.8, 0.3), ((3, 2, 11), 0.0, 0.0, 0.0),
+            ((3, 2, 11), 1.0, 1.0, 1.0), ((36, 8, 64), 0.6, 0.9, 0.3),
+            ((36, 8, 64), 0.01, 0.8, 0.005)]
+
+
+@pytest.mark.parametrize("pshape,pk,pc,ps", UP_CASES)
 @pytest.mark.parametrize("ci,co", [(128, 64), (256, 128), (256, 256)])
-def test_up_preamble_matches_plain(dev, ci, co):
+def test_up_preamble_matches_plain(dev, pshape, pk, pc, ps, ci, co):
+    """Against the plain version on a box with a negative corner."""
     g = _gen()
-    X2, Z2, Y2 = 3, 2, 11
-    pkeep = _mask(g, dev, (X2, Z2, Y2), 0.6)
-    child = upsample2_mask(pkeep) & _mask(g, dev, (2 * X2, 2 * Z2, 2 * Y2), 0.8)
-    skip_mask = _mask(g, dev, (2 * X2, 2 * Z2, 2 * Y2), 0.3)
+    X2, Z2, Y2 = pshape
+    cshape = (2 * X2, 2 * Z2, 2 * Y2)
+    pkeep = _mask(g, dev, pshape, pk)
+    child = upsample2_mask(pkeep) & _mask(g, dev, cshape, pc)
+    skip_mask = _mask(g, dev, cshape, ps)
     union = child | skip_mask
-    skip = torch.where(skip_mask[..., None], _randn(g, dev, 2 * X2, 2 * Z2, 2 * Y2, co),
+    skip = torch.where(skip_mask[..., None], _randn(g, dev, *cshape, co),
                        torch.zeros((), dtype=torch.bfloat16, device=dev))
-    box = Box.create(torch.tensor([-16, 8, -8], device=dev), (12, 44, 8))
+    box = Box.create(torch.tensor([-16, 8, -8], device=dev),
+                     (2 * cshape[0], 2 * cshape[2], 2 * cshape[1]))
     vec = lambda n, lo: (torch.rand(n, generator=g) + lo).to(dev)  # noqa: E731
     args = (_randn(g, dev, X2, Z2, Y2, ci), pkeep, child, union, skip, box, 2,
             _randn(g, dev, 8, ci, co, scale=ci ** -0.5), vec(co, -0.5),
             (vec(co, 0.5), vec(co, -0.5)), (vec(co + 3, 0.5), vec(co + 3, -0.5)),
             _randn(g, dev, co + 3, co, scale=0.1), vec(co, -0.5))
+    before = kernels.LAUNCHES["up_preamble"]
+    _nan_pool((*cshape, co), dev)
     _check(deconv.up_preamble(*args), deconv.up_preamble_plain(*args), union)
+    assert kernels.LAUNCHES["up_preamble"] == before + 1
 
 
 @pytest.mark.parametrize("n_shape,cap,e", [((7, 9, 33), 500, 20), ((40, 8, 40), 9000, 0),

@@ -20,8 +20,8 @@ from pasco_tpu.ops import dense_ops as jd
 from pasco_torch.core.sparse import Box
 from pasco_torch.ops import dense_ops as td
 from pasco_torch.ops.conv import masked_conv3
-from pasco_torch.ops.deconv import up_preamble
-from pasco_torch.ops.down import down2_fused
+from pasco_torch.ops.deconv import up_preamble, up_tiles
+from pasco_torch.ops.down import down2_fused, down_tiles
 from pasco_torch.ops.extract import stream_extract
 
 torch.set_num_threads(1)
@@ -224,6 +224,35 @@ def test_down2_fused_matches_pallas_interpret():
                       (T(a2), T(c2)))
     valid = np.broadcast_to(new_mask[..., None], got.shape)
     close_f32(got.numpy(), np.where(valid, ref, 0), valid)
+
+
+@pytest.mark.parametrize("p", [0.0, 1.0, 0.037])
+def test_down_tiles_compacts_valid_cells(p):
+    """The down kernel's product rows, compacted on the device: the valid
+    output cells' flat indices first, ascending, and their count, against
+    numpy on seeded masks (empty, full, and the 3.7% of valid cells of the
+    scan's occupancy at enc_s2)."""
+    m = np.random.RandomState(10).rand(12, 8, 22) < p
+    tiles = down_tiles(T(m))
+    want = np.flatnonzero(m)
+    assert tiles.ids.dtype == torch.int32 and tiles.n_tiles == m.size
+    assert int(tiles.n_active) == want.size
+    np.testing.assert_array_equal(tiles.ids[: want.size].numpy(), want)
+
+
+@pytest.mark.parametrize("p", [0.0, 1.0, 0.01])
+def test_up_tiles_lists_active_tiles_first(p):
+    """The up kernel's tiles of 64 flat parents: those with a child in the
+    union first, ascending, then the rest, and the active count."""
+    union = np.random.RandomState(11).rand(10, 6, 44) < p     # 330 parents
+    tiles = up_tiles(T(union))
+    par = union.reshape(5, 2, 3, 2, 22, 2).any(axis=(1, 3, 5)).ravel()
+    active = np.pad(par, (0, (-par.size) % 64)).reshape(-1, 64).any(axis=1)
+    n = int(tiles.n_active)
+    ids = tiles.ids.numpy()
+    assert tiles.n_tiles == active.size == ids.size and n == active.sum()
+    np.testing.assert_array_equal(ids[:n], np.flatnonzero(active))
+    np.testing.assert_array_equal(np.sort(ids[n:]), np.flatnonzero(~active))
 
 
 # --------------------------------------------------------------------------
