@@ -23,7 +23,8 @@
    broken deconv, or coordinates one cell off, would fail them
    (:func:`up_phase`);
    the column-sparse conv (row 7) runs through its own entry point on the
-   scan's s1 occupancy against cuDNN in f32 (:func:`column_conv_phase`);
+   scan's s1 occupancy against cuDNN in f32, within ``1e-5 * max|ref|``, a
+   bound that one or two TF32 products break (:func:`column_conv_phase`);
 4. drives the flagship forward (``PaSCoConfig()``, n_infers=1, full
    widths, seeded random init) on 3 synthetic scans after one warm-up,
    checks finite outputs of the expected shapes, kept voxels at every
@@ -88,9 +89,9 @@ import torch
 import torch.nn.functional as F
 
 TOL_REL, TOL_ABS = 2e-2, 2e-2
-# Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
-# f32 outside the tensor cores, HBM3.
-PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 and TF32 tensor
+# cores, f32 outside the tensor cores, HBM3.
+PEAK_BF16, PEAK_TF32, PEAK_F32, HBM_BYTES_S = 989e12, 495e12, 67e12, 3.35e12
 N_SCANS = 3
 N_TRAIN_STEPS = 3
 MIMO_S = 3                 # the reference's MIMO headline config (bench.py:54)
@@ -546,15 +547,19 @@ def kernel_phases(cfg, inp, gen):
     return rows
 
 
-def column_conv_phase(occ1, dev):
+def column_conv_phase(occ1, dev, guards=True):
     """Row 7 through its entry point, ``block_sparse_conv3``, on the scan's
     s1 occupancy as ``[X, Y, Z]``: f32 ``[X, Y, Z, 64]`` input (masked),
-    ``[27, 64, 64]`` weight and a bias, once with every 8x8 column listed and
-    once with the capacity at half the occupied columns.  The plain version
-    is cuDNN ``conv3d`` in f32 (TF32 off) zeroed outside the visited
-    columns.  Bound ``1e-3 * max|ref| + 1e-3`` at visited cells; elsewhere
-    both are exactly the bias at mask cells and 0 at the others.  Returns
-    the JSON row."""
+    ``[27, 64, 64]`` weight and a bias, once with every column listed (so
+    every occupied one is visited) and once with the capacity at half the
+    occupied columns.  The plain version is cuDNN ``conv3d`` in f32 (TF32
+    off) zeroed outside the visited columns.  Bound ``1e-5 * max|ref|`` at
+    visited cells, tight enough to tell f32 from TF32: with ``guards`` the
+    plain emulations of one TF32 product and of two (``hi hi + hi lo``) on
+    the same inputs must break it; elsewhere both are exactly the bias at
+    mask cells and 0 at the others.  Its bound is the 3xTF32 tensor-core
+    bound (three TF32 products per f32 one, :data:`PEAK_TF32`), with the f32
+    FMA figure beside it.  Returns the JSON row."""
     from pasco_torch import kernels
     from pasco_torch.ops import column_conv as cc
 
@@ -568,8 +573,8 @@ def column_conv_phase(occ1, dev):
     b = torch.rand((c,), generator=g, device=dev) * 0.2 - 0.1
     n_cols = -(-X // 8) * -(-Y // 8)
     n_occ = int(cc.active_columns(mask, n_cols)[1])
-    cases = [(f"all {n_cols} columns", n_cols), (f"{n_occ // 2} of {n_occ} occupied columns",
-                                                  n_occ // 2)]
+    cases = [(f"every occupied column ({n_occ} of {n_cols})", n_cols),
+             (f"{n_occ // 2} of {n_occ} occupied columns", n_occ // 2)]
     kernels.reset_launches()
     outs = [cc.block_sparse_conv3(x, w, mask, cap, bias=b) for _, cap in cases]
     torch.cuda.synchronize()
@@ -579,16 +584,25 @@ def column_conv_phase(occ1, dev):
         ref = cc.block_sparse_conv3_plain(x, w, mask, cap, bias=b)
         ids, n = cc.active_columns(mask, cap)
         vis = cc.visited_cells(ids, n, X, Y)[..., None].expand(X, Y, Z)
+        mag = ref[vis].abs().max().item()
         err = (got - ref)[vis].abs().max().item()
-        bound = 1e-3 * ref[vis].abs().max().item() + 1e-3
+        bound = 1e-5 * mag
         rest = torch.where(mask[..., None], b, torch.zeros((), device=dev))[~vis]
         print(f"check column_conv3 ({X}, {Y}, {Z}, {c}), {label}: visited cells "
-              f"{int(vis.sum())} of {vis.numel()}, max|d| {err:.4g}, bound {bound:.4g}",
-              flush=True)
+              f"{int(vis.sum())} of {vis.numel()}, max|d| {err:.4g} ({err / mag:.3g} of "
+              f"max|ref|), bound {bound:.4g}", flush=True)
         if not err <= bound:
             raise AssertionError(f"column_conv3 {label}: max|d| {err} > {bound}")
         if not (torch.equal(got[~vis], rest) and torch.equal(ref[~vis], rest)):
             raise AssertionError(f"column_conv3 {label}: unvisited columns not conv-free")
+        for products, name in ((1, "one TF32 product"), (2, "hi hi + hi lo")) if guards else ():
+            emu = cc.block_sparse_conv3_split(x, w, mask, cap, bias=b, products=products)
+            e = (emu - ref)[vis].abs().max().item()
+            print(f"guard column_conv3, {label}: {name} reads max|d| {e:.4g} ({e / mag:.3g} "
+                  f"of max|ref|)", flush=True)
+            if e <= bound:
+                raise AssertionError(f"column_conv3 {label}: the bound {bound} does not "
+                                     f"see {name} ({e})")
         errs.append(err)
     # library: f32 F.conv3d alone over the whole box (TF32 off), [X, Y, Z] order
     xl = x.permute(3, 0, 1, 2)[None]
@@ -599,15 +613,16 @@ def column_conv_phase(occ1, dev):
     for (label, cap), out in zip(cases, outs):
         ids, n = cc.active_columns(mask, cap)
         n_vis = int(cc.visited_cells(ids, n, X, Y).sum()) * Z
+        flop = n_vis * 27 * c * c * 2
         fields.append(timing_fields(
             time_ms(lambda: cc.block_sparse_conv3(x, w, mask, cap, bias=b)),
             time_ms(lambda: cc.block_sparse_conv3_plain(x, w, mask, cap, bias=b)), lib_ms,
-            n_vis * 27 * c * c * 2, rows_bytes(x, n_vis) + nbytes(w, mask, b, out),
-            PEAK_F32))
+            3 * flop, rows_bytes(x, n_vis) + nbytes(w, mask, b, out), PEAK_TF32))
         t = fields[-1]
         print(f"kernel column_conv3, {label}: {t['ms']:.3f} ms vs plain {t['plain_ms']:.3f} ms, "
-              f"library_ms {lib_ms:.3f}, bound_ms {t['bound_ms']:.3f} ({t['bound_by']}, f32 "
-              f"FMA peak)", flush=True)
+              f"library_ms {lib_ms:.3f}, bound_ms {t['bound_ms']:.3f} ({t['bound_by']}, 3xTF32 "
+              f"tensor-core peak; {100 * t['bound_ms'] / t['ms']:.1f}% of it), f32 FMA figure "
+              f"{flop / PEAK_F32 * 1e3:.3f} ms", flush=True)
     return dict(name="column_conv3", source="pasco_torch/csrc/column_conv3.cu",
                 replaces="pasco_tpu/ops/pallas_conv.py:1348", max_abs_err=max(errs),
                 launches=launches, **fields[0])

@@ -1,7 +1,8 @@
 // Shared helpers of the port's CUDA kernels (bf16 storage, f32 math), and
 // the Hopper PTX pieces of the tensor-core kernels (masked_conv3,
-// down2_fused, up_preamble): cp.async, ldmatrix, wgmma and its
-// shared-memory descriptors.
+// down2_fused, up_preamble, column_conv3): cp.async, bulk copies and
+// mbarriers, ldmatrix, wgmma (bf16 k16 and tf32 k8) and its shared-memory
+// descriptors.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,6 +105,59 @@ template <int N, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {
   if constexpr (N == 64) wgmma_n64<TB>(d, a, desc);
   else wgmma_n128<TB>(d, a, desc);
+}
+
+// wgmma.m64n64k8, f32 += tf32 * tf32 (scale_d = 0: d = a * b), A from
+// registers (four tf32 values in f32 bit patterns), B by descriptor,
+// K-major (tf32 has no transposed form).  A fragment of warp w of the
+// warpgroup, lane l, g = l / 4, t = l % 4: a[0] row g, k t; a[1] row g + 8,
+// k t; a[2] row g, k t + 4; a[3] row g + 8, k t + 4 (rows 16 w + ...).
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// f32 -> tf32, round to nearest with ties away from zero (the low 13
+// mantissa bits zero); the tensor core would otherwise truncate them.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// mbarrier in shared memory (`bar` a shared address).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Spins until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory by the copy engine; completes on mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                              uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // After wgmma_wait: keeps the compiler from reading the accumulators

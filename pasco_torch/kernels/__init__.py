@@ -55,8 +55,9 @@ _SIGNATURES = {
     # keep, payload, n, E, cap, block_counts, block_offsets, vals, src,
     # valid, total, stream
     "pasco_stream_extract": [P, P, L, I, I, P, P, P, P, P, P, P],
-    # x, w, out, ids, n_active, X, Y, Z, C, D, capacity, stream
-    "pasco_column_conv3": [P] * 5 + [I] * 6 + [P],
+    # x, img, bias, mask, listed, out, ids, n_active,
+    # X, Y, Z, Cs, D, NB, NKC, capacity, stream
+    "pasco_column_conv3": [P] * 8 + [I] * 8 + [P],
     # fs, ks, head, w, b, x, occ, P, F, C, dtype, stream
     "pasco_featurizer": [P] * 7 + [I] * 4 + [P],
 }

@@ -6,7 +6,9 @@
 Runs ``chip_smoke.kernel_phases`` of this checkout (the conv at s1-s8,
 the down step, the up-preamble and the extraction, each against its plain
 version, with its time, the plain version's, one library call's and its
-bound) on the first synthetic scan, with the ``pasco_torch`` of ``--root``
+bound) and ``chip_smoke.column_conv_phase`` (row 7, at every occupied
+column and at half of them; the TF32 guards only for this checkout's own
+``pasco_torch``) on the first synthetic scan, with the ``pasco_torch`` of ``--root``
 (default: this checkout).  The cases, the checks and the yardstick
 (``chip_smoke.time_ms``) are this checkout's either way, so two commits
 compare under one yardstick when ``--root`` is a ``git archive`` of the
@@ -58,6 +60,8 @@ def main():
     cfg = PaSCoConfig()
     inp = cs.make_scans(cfg, 1, torch.device("cuda", 0))[0][1]
     rows = cs.kernel_phases(cfg, inp, torch.Generator().manual_seed(0))
+    rows.append(cs.column_conv_phase(cs.scan_masks(cfg, inp)[1], torch.device("cuda", 0),
+                                     guards=root == ROOT))
     res = dict(card=card, root=str(root), kernels=rows)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:

@@ -239,14 +239,15 @@ def _column_case(g, dev, shape, c, d, p):
 
 @pytest.mark.parametrize("shape,p", [((16, 16, 8), 0.02), ((20, 13, 5), 0.05),
                                      ((24, 40, 32), 0.01), ((9, 9, 3), 0.3)])
-@pytest.mark.parametrize("c,d", [(64, 64), (16, 32), (40, 48)])
+@pytest.mark.parametrize("c,d", [(64, 64), (16, 32), (40, 48), (6, 16)])
 @pytest.mark.parametrize("part", [1.0, 0.5])
 def test_column_conv3_matches_plain(dev, shape, p, c, d, part):
     """Row 7: ragged column grids (X, Y not multiples of 8), Z not a
-    multiple of the kernel's z-slab, C not a multiple of its channel chunk,
-    and a capacity at half the occupied columns.  f32 bound
-    ``1e-3 * max|ref| + 1e-3`` at visited cells; elsewhere exactly the bias
-    at mask cells and 0."""
+    multiple of the kernel's z-slab, C not a multiple of 8 or of its
+    channel chunk, and a capacity at half the occupied columns.  Bound
+    ``1e-5 * max|ref|`` at visited cells: f32 and the kernel's three TF32
+    products read ~5e-7, one or two TF32 products >= 1.9e-4; elsewhere
+    exactly the bias at mask cells and 0."""
     from pasco_torch.ops import column_conv as cc
 
     g = _gen()
@@ -259,9 +260,22 @@ def test_column_conv3_matches_plain(dev, shape, p, c, d, part):
     ref = cc.block_sparse_conv3_plain(x, w, m, cap, bias=b)
     ids, n = cc.active_columns(m, cap)
     vis = cc.visited_cells(ids, n, shape[0], shape[1])[..., None].expand(shape)
-    assert (got - ref)[vis].abs().max() <= 1e-3 * ref[vis].abs().max() + 1e-3
+    assert (got - ref)[vis].abs().max() <= 1e-5 * ref[vis].abs().max()
     rest = torch.where(m[..., None], b, torch.zeros((), device=dev))[~vis]
     assert torch.equal(got[~vis], rest) and torch.equal(ref[~vis], rest)
+
+
+@pytest.mark.parametrize("c,d,cd", [(96, 80, None), (64, 64, torch.bfloat16)])
+def test_column_conv3_wide_and_bf16(dev, c, d, cd):
+    """Row 7 beyond one channel chunk and one output tile (C = 96: two
+    64-channel halos; D = 80: two items per slab), and with bf16-rounded
+    inputs (their TF32 ``lo`` is 0), within the bound above."""
+    from pasco_torch.ops import column_conv as cc
+
+    x, w, m, b = _column_case(_gen(), dev, (20, 13, 9), c, d, 0.05)
+    got = cc.block_sparse_conv3(x, w, m, 100, bias=b, compute_dtype=cd)
+    ref = cc.block_sparse_conv3_plain(x, w, m, 100, bias=b, compute_dtype=cd)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 def test_column_conv3_empty_mask(dev):
@@ -269,6 +283,22 @@ def test_column_conv3_empty_mask(dev):
 
     x, w, m, b = _column_case(_gen(), dev, (16, 24, 8), 64, 64, 0.0)
     assert not cc.block_sparse_conv3(x, w, m, 6, bias=b).any()
+
+
+def test_column_conv3_plain_ignores_global_tf32(dev):
+    """The plain version states its precision: with cuDNN's global TF32
+    flag at PyTorch's default (True) it still computes in f32."""
+    from pasco_torch.ops import column_conv as cc
+
+    x, w, m, b = _column_case(_gen(), dev, (24, 40, 32), 64, 64, 0.01)
+    want = cc.block_sparse_conv3_plain(x, w, m, 100, bias=b)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = cc.block_sparse_conv3_plain(x, w, m, 100, bias=b)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert torch.equal(got, want)
 
 
 def _points(g, dev, P, F, extent, p_valid=0.9):
