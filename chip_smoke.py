@@ -22,6 +22,8 @@
    coordinate channels near the origin, and shows that a plain run with a
    broken deconv, or coordinates one cell off, would fail them
    (:func:`up_phase`);
+   the extraction also with its device time per call from the profiler
+   (``device_ms``) and exactly one kernel launch per call;
    the column-sparse conv (row 7) runs through its own entry point on the
    scan's s1 occupancy against cuDNN in f32, within ``1e-5 * max|ref|``, a
    bound that one or two TF32 products break (:func:`column_conv_phase`);
@@ -31,7 +33,8 @@
    scale and that every kernel was launched, and prints scans/s,
    device ms/scan and peak device memory; the fused featurizer (row 8)
    then runs through its own entry point on the first scan's points
-   against the model's featurizer chain (:func:`featurizer_phase`);
+   against the model's featurizer chain, with its device time per call
+   (:func:`featurizer_phase`);
 5. runs ``run_scene_inference`` and the ``Evaluator`` on one scan;
    then the same for the MIMO ensemble (n_infers=3, the slice's main
    path): 3 scans, each 3 augmented views of one scene, through the
@@ -66,8 +69,9 @@
 
 Prints the whole run's wall time and a JSON line with the kernels'
 numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
-``bound_by``; launches from the MIMO forward, the MIMO train steps and the
-two entry-point phases), then as its last line
+``bound_by``, ``device_ms`` for rows 4-5 and 8; launches from the MIMO
+forward, the MIMO train steps and the two entry-point phases), then as its
+last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
 result line); so does a machine without a CUDA device.
 """
@@ -126,6 +130,39 @@ def time_ms(fn, reps=5):
         b.synchronize()
         samples.append(a.elapsed_time(b) / batch)
     return statistics.median(samples)
+
+
+def profile_call(fn, reps=7):
+    """The device activities (kernels, memsets, copies) of one call of
+    ``fn()`` from ``torch.profiler``, each call profiled alone after a
+    warm-up: a list of ``reps`` lists of (name, ms).  A profile that records
+    no device activity at all (the profiler did so once on the card) is run
+    again, up to three times; then it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    calls = []
+    for _ in range(reps):
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            acts = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA]
+            if acts:
+                break
+        else:
+            raise AssertionError("profile_call: the profiler recorded no device activity")
+        calls.append(acts)
+    return calls
+
+
+def device_ms(calls, pattern=""):
+    """Median over calls of the device ms of the activities whose name
+    contains ``pattern`` (all of them by default)."""
+    return statistics.median(sum(ms for name, ms in c if pattern in name) for c in calls)
 
 
 def eval_scene(cfg, rng, n_points=120000, max_angle=30.0):
@@ -498,8 +535,11 @@ def up_phase(cfg, inp, gen):
                 **{k: v for k, v in main.items() if k not in ("case", "shape")}, cases=out)
 
 
-def kernel_phases(cfg, inp, gen):
-    """Each kernel against its plain version at main-path shapes."""
+def kernel_phases(cfg, inp, gen, own=True):
+    """Each kernel against its plain version at main-path shapes.  With
+    ``own`` (the kernels of this checkout) each ``stream_extract`` call must
+    also be one kernel launch on the card."""
+    from pasco_torch import kernels
     from pasco_torch.ops import extract
 
     dev = inp.point_feats.device
@@ -521,22 +561,36 @@ def kernel_phases(cfg, inp, gen):
         ("dec_s1", bbox1, randn(X, Z, Y, cfg.model.n_classes),
          cfg.capacity.dec_s1),
         ("refiner s1", keep_ref, randn(X, Z, Y, f), cfg.capacity.panop_s1),
+        ("dec_s1 rows only (training)", bbox1, None, cfg.capacity.dec_s1),
     ]
     fields = None
     for label, keep, pay, cap in cases:
+        before = kernels.LAUNCHES["stream_extract"]
         got = extract.stream_extract(keep, cap, pay)
+        if kernels.LAUNCHES["stream_extract"] != before + 1:
+            raise AssertionError(f"stream_extract {label}: not one counted launch")
         ref = extract.stream_extract_plain(keep, cap, pay)
         for gname, g, r in zip(("vals", "src", "valid", "total"), got, ref):
             if g.shape != r.shape or not torch.equal(g, r):
                 raise AssertionError(f"stream_extract {label}: {gname} differs")
+        call = lambda k=keep, c=cap, p=pay: extract.stream_extract(k, c, p)  # noqa: E731
+        calls = profile_call(call)
+        dev_ms = device_ms(calls)
+        print(f"check stream_extract {label}: bit-exact, kept {int(got[3])} of "
+              f"{keep.numel()}, cap {cap}, E {0 if pay is None else pay.shape[-1]}; device "
+              f"{dev_ms:.4f} ms a call, device activities per call "
+              f"{[name for name, _ in calls[0]]}", flush=True)
+        if own and any(len(c) != 1 or "extract_kernel" not in c[0][0] for c in calls):
+            raise AssertionError(f"stream_extract {label}: not one kernel launch per call: "
+                                 f"{calls}")
         if fields is None:
             # no library call: one PyTorch call that compacts a capped,
             # ordered payload with its source rows does not exist
             # (torch.nonzero syncs the host and leaves the gather to a 2nd)
             fields = timing_fields(
-                time_ms(lambda: extract.stream_extract(keep, cap, pay)),
-                time_ms(lambda: extract.stream_extract_plain(keep, cap, pay)), None,
-                0, rows_bytes(pay, min(int(keep.sum()), cap)) + nbytes(keep, *got))
+                time_ms(call), time_ms(lambda: extract.stream_extract_plain(keep, cap, pay)),
+                None, 0, rows_bytes(pay, min(int(keep.sum()), cap)) + nbytes(keep, *got))
+            fields["device_ms"] = dev_ms
     rows.append(dict(
         name="stream_extract", source="pasco_torch/csrc/stream_extract.cu",
         replaces="pasco_tpu/ops/pallas_extract.py:454", max_abs_err=0.0, **fields))
@@ -663,16 +717,19 @@ def featurizer_phase(cfg, inp, net):
     err, _ = _compare("featurizer", x, xr, occ)
     # no library call: a scatter-max over points followed by a 1x1 is two
     # PyTorch calls at least (scatter_reduce, then a product)
+    calls = profile_call(lambda: fz.featurizer_fused(*args))
     row = dict(name="featurizer", source="pasco_torch/csrc/featurizer.cu",
                replaces="pasco_tpu/ops/pallas_featurizer.py:214", max_abs_err=err,
                launches=launches, **timing_fields(
                    time_ms(lambda: fz.featurizer_fused(*args)),
                    time_ms(lambda: fz.featurizer_fused_plain(*args)), None,
                    int(occ.sum()) * w.shape[0] * w.shape[1] * 2,
-                   nbytes(f, rel, in_box, w, b, x, occ), PEAK_F32))
+                   nbytes(f, rel, in_box, w, b, x, occ), PEAK_F32),
+               device_ms=device_ms(calls), kernel_device_ms=device_ms(calls, "featurizer_kernel"))
     print(f"kernel featurizer: {row['ms']:.3f} ms vs plain {row['plain_ms']:.3f} ms, "
-          f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}), launches {launches}",
-          flush=True)
+          f"device {row['device_ms']:.4f} ms a call (its kernel {row['kernel_device_ms']:.4f}; "
+          f"activities {[name for name, _ in calls[0]]}), bound_ms {row['bound_ms']:.4f} "
+          f"({row['bound_by']}), launches {launches}", flush=True)
     return row
 
 

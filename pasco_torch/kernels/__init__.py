@@ -39,6 +39,7 @@ EXTRA_FLAGS_ENV = "PASCO_NVCC_EXTRA_FLAGS"
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
+U = ctypes.c_uint
 
 # C signature of every entry point (all return cudaError_t as int).
 _SIGNATURES = {
@@ -52,14 +53,15 @@ _SIGNATURES = {
     # a2, c2, wr, br, box_min, out, tile_ids, n_active,
     # X2, Z2, Y2, Ci, Co, scale, n_tiles, stream
     "pasco_up_preamble": [P] * 17 + [I] * 7 + [P],
-    # keep, payload, n, E, cap, block_counts, block_offsets, vals, src,
-    # valid, total, stream
-    "pasco_stream_extract": [P, P, L, I, I, P, P, P, P, P, P, P],
+    # keep, payload, n, E, cap, ws, ws_tiles, epoch, vals, src, valid,
+    # total, stream
+    "pasco_stream_extract": [P, P, L, I, I, P, I, U, P, P, P, P, P],
     # x, img, bias, mask, listed, out, ids, n_active,
     # X, Y, Z, Cs, D, NB, NKC, capacity, stream
     "pasco_column_conv3": [P] * 8 + [I] * 8 + [P],
-    # fs, ks, head, w, b, x, occ, P, F, C, dtype, stream
-    "pasco_featurizer": [P] * 7 + [I] * 4 + [P],
+    # f, order, ks, w, b, x, occ, P, F, C, n_cells, in_dtype, out_dtype,
+    # stream
+    "pasco_featurizer": [P] * 7 + [I] * 6 + [P],
 }
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
@@ -149,7 +151,10 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of ``t``'s device, as the raw pointer (the public
+    ``torch.cuda.current_stream(dev).cuda_stream`` builds a Stream object
+    first, host time on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -12,13 +12,12 @@ the CUDA source.
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from pasco_torch import kernels
-
-CELLS = 1024   # cells per block (kernel constant)
 
 
 def compact_src(keep_f: torch.Tensor, capacity: int):
@@ -45,6 +44,35 @@ def stream_extract_plain(keep, capacity, payload=None):
     return vals, src, valid, total
 
 
+class _Workspace:
+    """The kernel's look-back flags on one (device, stream): one int64 word
+    per tile, zeroed once when allocated.  Every call takes a new epoch,
+    which tags the flag words it writes, so no call needs a memset; calls on
+    one stream run in order, so they never share the words at once."""
+
+    __slots__ = ("buf", "tiles", "epoch", "lock")
+
+    def __init__(self):
+        self.buf, self.tiles, self.epoch = None, -1, 0
+        self.lock = threading.Lock()
+
+    def take(self, n_tiles: int, dev: torch.device) -> Tuple[torch.Tensor, int, int]:
+        """(buffer, its tiles, a new epoch) for one call of ``n_tiles``."""
+        with self.lock:
+            if n_tiles > self.tiles:
+                self.buf = torch.zeros((n_tiles,), dtype=torch.int64, device=dev)
+                self.tiles = n_tiles
+            self.epoch += 1
+            if self.epoch >= 1 << 32:           # an old word could carry this epoch
+                self.buf.zero_()
+                self.epoch = 1
+            return self.buf, self.tiles, self.epoch
+
+
+TILE = 16384   # cells per tile (csrc/stream_extract.cu; the kernel checks the workspace)
+_WORKSPACES: Dict[Tuple[int, int], _Workspace] = {}
+
+
 def stream_extract(
     keep: torch.Tensor,                       # [X, Z, Y] bool
     capacity: int,
@@ -55,23 +83,23 @@ def stream_extract(
     dev = keep.device
     kernels.require(keep, "keep", torch.bool)
     n = keep.numel()
+    if n >= 1 << 30:
+        raise ValueError(f"stream_extract takes fewer than 2^30 cells, got {n}")
     e = 0
     if payload is not None:
         e = payload.shape[-1]
         kernels.require(payload, "payload", torch.bfloat16, (*keep.shape, e), dev)
-    nb = -(-n // CELLS)
-    counts = torch.empty((nb,), dtype=torch.int32, device=dev)
-    offsets = torch.empty((nb,), dtype=torch.int32, device=dev)
-    vals = torch.zeros((capacity, e), dtype=torch.bfloat16, device=dev)
-    src = torch.zeros((capacity,), dtype=torch.int32, device=dev)
-    valid = torch.zeros((capacity,), dtype=torch.bool, device=dev)
-    total = torch.zeros((1,), dtype=torch.int32, device=dev)
+    stream = kernels.stream_ptr(keep)
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key) or _WORKSPACES.setdefault(key, _Workspace())
+    buf, tiles, epoch = ws.take(-(-n // TILE), dev)
+    vals = torch.empty((capacity, e), dtype=torch.bfloat16, device=dev)
+    src = torch.empty((capacity,), dtype=torch.int32, device=dev)
+    valid = torch.empty((capacity,), dtype=torch.bool, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
     err = kernels.lib().pasco_stream_extract(
-        keep.data_ptr(), kernels.ptr(payload), n, e, capacity,
-        counts.data_ptr(), offsets.data_ptr(), vals.data_ptr(),
-        src.data_ptr(), valid.data_ptr(), total.data_ptr(),
-        kernels.stream_ptr(keep),
-    )
+        keep.data_ptr(), kernels.ptr(payload), n, e, capacity, buf.data_ptr(), tiles, epoch,
+        vals.data_ptr(), src.data_ptr(), valid.data_ptr(), total.data_ptr(), stream)
     kernels.check(err, "stream_extract")
     kernels.LAUNCHES["stream_extract"] += 1
-    return vals, src, valid, total[0]
+    return vals, src, valid, total

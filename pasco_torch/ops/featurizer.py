@@ -14,11 +14,11 @@ layout
 S == 1 only, as the TPU kernel is.  The TPU kernel's padded, z-pair-packed
 ``xpad``, its int8 lane-expanded stage mask and its y halo are TPU layout
 and are not reproduced.  The entry keeps the reference's structure: the key
-sort and the run heads are index preparation outside the kernel (XLA's
-argsort/searchsorted in the reference); one kernel then takes the max over
-each occupied cell's contiguous run of sorted points, marks the occupancy
-and applies the 1x1 with ``W`` held in shared memory plus the bias; the
-empty cells are zero from one memset.
+sort is index preparation outside the kernel (:func:`sort_points`; XLA's
+argsort in the reference); one kernel then writes every cell of ``x`` and
+``occ`` once: the max over each occupied cell's points read through the
+sort's permutation, the occupancy, the 1x1 with ``W`` held in shared
+memory plus the bias, and exact zeros at the empty cells.
 
 A CPU tensor takes :func:`featurizer_fused_plain`, the model's own
 featurizer chain (:func:`scatter_points` + the masked 1x1); a CUDA tensor
@@ -41,7 +41,7 @@ Extent = Tuple[int, int, int]
 def cell_index(rel: torch.Tensor, extent: Extent) -> torch.Tensor:
     """Flat ``[X, Z, Y]`` cell index of in-box voxel coords ``rel`` (x, y, z)."""
     _, ey, ez = extent
-    return (rel[:, 0] * ez + rel[:, 2]) * ey + rel[:, 1]
+    return torch.add(rel[:, 1], torch.add(rel[:, 2], rel[:, 0], alpha=ez), alpha=ey)
 
 
 def scatter_points(f: torch.Tensor, rel: torch.Tensor, in_box: torch.Tensor,
@@ -83,11 +83,21 @@ def featurizer_fused_plain(f, rel, in_box, weight, bias, extent: Extent,
     return enc_in_1x1(x, occ, weight, bias), occ
 
 
+def sort_points(rel: torch.Tensor, in_box: torch.Tensor, extent: Extent):
+    """Index preparation of the kernel (XLA's argsort in the reference):
+    the int32 flat cell keys of the points sorted ascending, invalid points
+    last with key ``n_cells``, and the sort's permutation (``ks[i]`` is the
+    key of point ``order[i]``)."""
+    ex, ey, ez = extent
+    key = torch.where(in_box, cell_index(rel.to(torch.int32), extent), ex * ey * ez)
+    return torch.sort(key.to(torch.int32))
+
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def featurizer_fused(
-    f: torch.Tensor,            # [P, F] point MLP features
+    f: torch.Tensor,            # [P, F] point MLP features, f32 or bf16
     rel: torch.Tensor,          # [P, 3] int in-box voxel coords (x, y, z)
     in_box: torch.Tensor,       # [P] bool valid and inside the box
     weight: torch.Tensor,       # [F, C] enc_in weight
@@ -102,30 +112,31 @@ def featurizer_fused(
     dev = f.device
     ex, ey, ez = extent
     n_cells = ex * ey * ez
-    if compute_dtype not in _DTYPES:
-        raise ValueError(f"featurizer_fused computes in f32 or bf16, not {compute_dtype}")
+    if compute_dtype not in _DTYPES or f.dtype not in _DTYPES:
+        raise ValueError(f"featurizer_fused takes f32 or bf16 features and computes in f32 "
+                         f"or bf16, not {f.dtype} and {compute_dtype}")
     kernels.require(in_box, "in_box", torch.bool, (P,), dev)
     if tuple(rel.shape) != (P, 3) or tuple(weight.shape) != (Fd, C) or tuple(bias.shape) != (C,):
         raise ValueError(f"shapes rel {tuple(rel.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)} do not fit f {tuple(f.shape)}")
-    if Fd > 128 or C > 256:
-        raise ValueError(f"featurizer_fused takes F <= 128 and C <= 256, got {Fd}, {C}")
-    # Index preparation (XLA's argsort in the reference): sort the points by
-    # cell, invalid points last, and flag the head of every cell's run.
-    key = torch.where(in_box, cell_index(rel.to(torch.int64), extent),
-                      torch.full((P,), n_cells, dtype=torch.int64, device=dev))
-    ks, order = torch.sort(key)
-    head = (ks < n_cells) & torch.cat([ks[:1] >= 0, ks[1:] != ks[:-1]])
-    fs = f.index_select(0, order).to(compute_dtype).contiguous()
-    ks32 = ks.to(torch.int32).contiguous()
-    w = weight.to(device=dev, dtype=compute_dtype).float().contiguous()
-    b = bias.to(device=dev, dtype=compute_dtype).float().contiguous()
-    x = torch.zeros((ex, ez, ey, C), dtype=compute_dtype, device=dev)
-    occ = torch.zeros((ex, ez, ey), dtype=torch.bool, device=dev)
+    if Fd not in (8, 16, 32, 64, 128) or C not in (32, 64, 128, 256):
+        raise ValueError(f"featurizer_fused takes F in 8, 16, .., 128 and C in 32, 64, 128, "
+                         f"256, got F={Fd}, C={C}")
+    if not 0 < n_cells < 1 << 31:
+        raise ValueError(f"featurizer_fused takes 1 to 2^31 - 1 cells, got {n_cells}")
+    ks, order = sort_points(rel, in_box, extent)
+    f = f.contiguous()
+    if f.data_ptr() % 16:                  # the kernel reads rows with 16-byte loads
+        f = f.clone()
+    # rounded to compute_dtype by the kernel as it stages them
+    w = weight.to(device=dev, dtype=torch.float32).contiguous()
+    b = bias.to(device=dev, dtype=torch.float32).contiguous()
+    x = torch.empty((ex, ez, ey, C), dtype=compute_dtype, device=dev)
+    occ = torch.empty((ex, ez, ey), dtype=torch.bool, device=dev)
     err = kernels.lib().pasco_featurizer(
-        fs.data_ptr(), ks32.data_ptr(), head.data_ptr(), w.data_ptr(), b.data_ptr(),
-        x.data_ptr(), occ.data_ptr(), P, Fd, C, _DTYPES[compute_dtype],
-        kernels.stream_ptr(f))
+        f.data_ptr(), order.data_ptr(), ks.data_ptr(), w.data_ptr(), b.data_ptr(),
+        x.data_ptr(), occ.data_ptr(), P, Fd, C, n_cells, _DTYPES[f.dtype],
+        _DTYPES[compute_dtype], kernels.stream_ptr(f))
     kernels.check(err, "featurizer")
     kernels.LAUNCHES["featurizer"] += 1
     return x, occ

@@ -6,13 +6,17 @@
 Runs ``chip_smoke.kernel_phases`` of this checkout (the conv at s1-s8,
 the down step, the up-preamble and the extraction, each against its plain
 version, with its time, the plain version's, one library call's and its
-bound) and ``chip_smoke.column_conv_phase`` (row 7, at every occupied
-column and at half of them; the TF32 guards only for this checkout's own
-``pasco_torch``) on the first synthetic scan, with the ``pasco_torch`` of ``--root``
-(default: this checkout).  The cases, the checks and the yardstick
-(``chip_smoke.time_ms``) are this checkout's either way, so two commits
-compare under one yardstick when ``--root`` is a ``git archive`` of the
-other one unpacked under ``build/``; run them in one call, alternating.
+bound; the extraction also with its device time from the profiler),
+``chip_smoke.column_conv_phase`` (row 7, at every occupied column and at
+half of them) and ``chip_smoke.featurizer_phase`` (row 8 on the scan's
+points, through a seeded net's point MLP) on the first synthetic scan, with
+the ``pasco_torch`` of ``--root`` (default: this checkout).  The checks
+that hold only for this checkout's kernels (row 7's TF32 guards, one
+launch per extraction) run only without ``--root``.  The cases, the
+checks and the yardstick (``chip_smoke.time_ms``) are this checkout's
+either way, so two commits compare under one yardstick when ``--root`` is
+a ``git archive`` of the other one unpacked under ``build/``; run them in
+one call, alternating.
 Prints the card, the phases' lines and one JSON line (also written to
 ``--out``).
 """
@@ -47,6 +51,7 @@ def main():
     spec.loader.exec_module(cs)
     from pasco_torch import kernels
     from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.models.unet import build_net
 
     if not Path(kernels.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"kernel_times.py: pasco_torch from {kernels.__file__}, not {root}")
@@ -59,9 +64,12 @@ def main():
     kernels.lib()
     cfg = PaSCoConfig()
     inp = cs.make_scans(cfg, 1, torch.device("cuda", 0))[0][1]
-    rows = cs.kernel_phases(cfg, inp, torch.Generator().manual_seed(0))
-    rows.append(cs.column_conv_phase(cs.scan_masks(cfg, inp)[1], torch.device("cuda", 0),
-                                     guards=root == ROOT))
+    dev = torch.device("cuda", 0)
+    rows = cs.kernel_phases(cfg, inp, torch.Generator().manual_seed(0), own=root == ROOT)
+    rows.append(cs.column_conv_phase(cs.scan_masks(cfg, inp)[1], dev, guards=root == ROOT))
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    rows.append(cs.featurizer_phase(cfg, inp, net))
     res = dict(card=card, root=str(root), kernels=rows)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:

@@ -63,7 +63,7 @@ OWN_KERNELS = {
     "masked_conv3": r"masked_conv3_kernel",
     "down2_fused": r"down2_kernel",
     "up_preamble": r"up_preamble_kernel",
-    "stream_extract": r"\(anonymous namespace\)::(count|scan|rank|gather)_kernel\b",
+    "stream_extract": r"extract_kernel",
 }
 
 

@@ -228,6 +228,80 @@ def test_stream_extract_bit_exact(dev, n_shape, cap, e):
         assert a.shape == b.shape and torch.equal(a, b)
 
 
+def _nan_blocks(dev, *nbytes):
+    """Leave NaN-filled blocks of these sizes in the caching allocator, so
+    that outputs of those sizes allocated next (``torch.empty``) likely start
+    as NaN bits: a byte the kernel fails to write then shows."""
+    blocks = [torch.full((max(1, -(-n // 2)),), float("nan"), dtype=torch.bfloat16,
+                         device=dev) for n in nbytes]
+    del blocks
+
+
+def _extract_checked(keep, cap, pay):
+    """One ``stream_extract`` call on NaN-poisoned outputs, exactly one
+    counted launch, bit-exact against the plain version."""
+    dev = keep.device
+    e = 0 if pay is None else pay.shape[-1]
+    _nan_blocks(dev, cap * e * 2, cap * 4, cap, 4)
+    before = kernels.LAUNCHES["stream_extract"]
+    got = extract.stream_extract(keep, cap, pay)
+    assert kernels.LAUNCHES["stream_extract"] == before + 1
+    ref = extract.stream_extract_plain(keep, cap, pay)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    return got
+
+
+# Edge cases: (label, keep shape, keep density, cap; None = the kept count,
+# E).  16384 cells make one tile; 13 x 29 x 61 is more than one and not a
+# multiple of it.
+EXTRACT_EDGES = [
+    ("empty keep", (16, 8, 32), 0.0, 1000, 20),
+    ("all kept, cap < total", (16, 8, 40), 1.0, 3000, 20),
+    ("cap == total", (16, 8, 40), 0.4, None, 64),
+    ("ragged n", (13, 29, 61), 0.5, 9000, 20),
+    ("ragged n, rows only", (13, 29, 61), 0.5, 16000, 0),
+    ("one cell", (1, 1, 1), 1.0, 5, 3),
+    ("odd E, many tiles", (64, 16, 97), 0.3, 50000, 5),
+    ("cap binds in the first tile", (64, 16, 97), 0.9, 700, 20),
+]
+
+
+@pytest.mark.parametrize("label,shape,p,cap,e", EXTRACT_EDGES,
+                         ids=[c[0] for c in EXTRACT_EDGES])
+def test_stream_extract_edge_cases(dev, label, shape, p, cap, e):
+    g = _gen()
+    keep = _mask(g, dev, shape, p)
+    cap = int(keep.sum()) if cap is None else cap
+    pay = _randn(g, dev, *shape, e) if e else None
+    vals, src, valid, total = _extract_checked(keep, cap, pay)
+    assert int(total) == int(keep.sum())
+
+
+def test_stream_extract_back_to_back(dev):
+    """20 calls on one stream without a synchronisation between them,
+    alternating shapes, caps and E (0, 20, 64), then each against the plain
+    version: bit-exact, which shows that the look-back flags (epoch-tagged)
+    and the ticket carry nothing from one call to the next."""
+    g = _gen()
+    shapes = [(40, 8, 40), (13, 7, 61), (88, 32, 88), (5, 3, 7)]
+    calls = []
+    for i in range(20):
+        shape = shapes[i % len(shapes)]
+        e = (0, 20, 64)[i % 3]
+        keep = _mask(g, dev, shape, (0.2, 0.7, 0.0, 1.0, 0.5)[i % 5])
+        pay = _randn(g, dev, *shape, e) if e else None
+        cap = (100, 5000, 30000, 250000)[i % 4]
+        calls.append((keep, cap, pay))
+    before = kernels.LAUNCHES["stream_extract"]
+    outs = [extract.stream_extract(*c) for c in calls]
+    assert kernels.LAUNCHES["stream_extract"] == before + len(calls)
+    for (keep, cap, pay), got in zip(calls, outs):
+        ref = extract.stream_extract_plain(keep, cap, pay)
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
 def _column_case(g, dev, shape, c, d, p):
     m = _mask(g, dev, shape, p)
     x = torch.where(m[..., None], torch.randn((*shape, c), generator=g).to(dev),
@@ -343,6 +417,66 @@ def test_featurizer_empty_scan(dev):
     w, b = torch.ones((64, 64), device=dev), torch.ones(64, device=dev)
     x, occ = fz.featurizer_fused(f, rel, in_box, w, b, (8, 16, 8))
     assert not occ.any() and not x.any()
+
+
+def _featurizer_checked(dev, f, rel, in_box, extent, dtype=torch.bfloat16, C=64):
+    """One ``featurizer_fused`` call over NaN-poisoned outputs, one counted
+    launch; occupancy identical to the plain version's, values within the
+    bf16 bound at occupied cells, exact zeros elsewhere."""
+    from pasco_torch.ops import featurizer as fz
+
+    g = _gen()
+    F = f.shape[1]
+    w = (torch.randn((F, C), generator=g) * F ** -0.5).to(dev)
+    b = (torch.randn(C, generator=g) * 0.1).to(dev)
+    ex, ey, ez = extent
+    _nan_blocks(dev, ex * ey * ez * C * dtype.itemsize, ex * ey * ez)
+    before = kernels.LAUNCHES["featurizer"]
+    x, occ = fz.featurizer_fused(f, rel, in_box, w, b, extent, dtype)
+    assert kernels.LAUNCHES["featurizer"] == before + 1
+    xr, occr = fz.featurizer_fused_plain(f, rel, in_box, w, b, extent, dtype)
+    assert torch.equal(occ, occr)
+    _check(x, xr, occ)
+    return x, occ
+
+
+def test_featurizer_one_long_run(dev):
+    """Every point in one cell: one run of 20000 points, split over
+    segments and warps, merged by the shared max."""
+    g = _gen()
+    extent = (24, 40, 16)
+    f = (torch.randn((20000, 64), generator=g) * 3).to(dev)
+    rel = torch.tensor([[5, 17, 9]], dtype=torch.int32).expand(20000, 3).contiguous().to(dev)
+    x, occ = _featurizer_checked(dev, f, rel, torch.ones(20000, dtype=torch.bool, device=dev),
+                                 extent)
+    assert int(occ.sum()) == 1 and bool(occ[5, 9, 17])
+
+
+def test_featurizer_last_cell(dev):
+    """Points in the box's last cell (the last, ragged chunk) and its first,
+    with bf16 features."""
+    g = _gen()
+    extent = (7, 9, 5)                       # 315 cells: chunks of 128 leave 59
+    ex, ey, ez = extent
+    rel = torch.tensor([[ex - 1, ey - 1, ez - 1]] * 30 + [[0, 0, 0]] * 3, dtype=torch.int32)
+    f = (torch.randn((33, 32), generator=g) * 3).to(dev, torch.bfloat16)
+    x, occ = _featurizer_checked(dev, f, rel.to(dev), torch.ones(33, dtype=torch.bool,
+                                                                 device=dev), extent)
+    assert int(occ.sum()) == 2 and bool(occ[-1, -1, -1]) and bool(occ[0, 0, 0])
+
+
+def test_featurizer_scan_box_nan_pool(dev):
+    """A scan-sized point set in the flagship box (352, 352, 32) over a
+    NaN-filled allocator block of the volume's size: every cell written."""
+    g = _gen()
+    extent = (352, 352, 32)
+    P = 120000
+    rel = torch.stack([torch.randint(0, e, (P,), generator=g) for e in extent], 1)
+    rel[: P // 2] = rel[P // 2:] // 4 * 4                    # crowded cells
+    f = (torch.randn((P, 64), generator=g) * 3).to(dev)
+    in_box = (torch.rand(P, generator=g) < 0.95).to(dev)
+    x, occ = _featurizer_checked(dev, f, rel.int().to(dev), in_box, extent)
+    assert 0 < int(occ.sum()) < int(in_box.sum())
 
 
 def test_wrappers_raise_on_wrong_input(dev):

@@ -100,3 +100,43 @@ def test_featurizer_empty_scan():
                                  T(w), T(b), EXTENT, torch.float32)
     assert not occ.any() and not x.any()
     assert x.shape == (EXTENT[0], EXTENT[2], EXTENT[1], w.shape[1])
+
+
+def test_sort_points_matches_numpy():
+    """The kernel's index preparation: int32 keys of the valid points in
+    ascending flat ``[X, Z, Y]`` order, each point once, the invalid ones
+    last with key ``n_cells``; and the per-chunk point slices the kernel
+    finds by binary search equal a brute-force count."""
+    f, rel, in_box, _, _ = points(9, P=600)
+    ex, ey, ez = EXTENT
+    n_cells = ex * ey * ez
+    ks, order = tf.sort_points(T(rel), T(in_box), EXTENT)
+    ks, order = ks.numpy(), order.numpy()
+    assert ks.dtype == np.int32 and sorted(order) == list(range(len(rel)))
+    want = np.where(in_box, (rel[:, 0] * ez + rel[:, 2]) * ey + rel[:, 1], n_cells)
+    np.testing.assert_array_equal(ks, want[order])
+    assert np.all(np.diff(ks) >= 0) and np.sum(ks == n_cells) == np.sum(~in_box)
+    ch = 128                                   # cells per chunk (csrc/featurizer.cu)
+    starts = np.minimum(np.arange(0, n_cells + ch, ch), n_cells)
+    brute = np.array([np.sum(ks < c) for c in starts])
+    np.testing.assert_array_equal(np.searchsorted(ks, starts, side="left"), brute)
+    for c0, p0, p1 in zip(starts[:-1], brute[:-1], brute[1:]):
+        assert np.all((ks[p0:p1] >= c0) & (ks[p0:p1] < c0 + ch))
+
+
+def test_featurizer_one_cell_and_last_cell():
+    """All valid points in one cell (one long run), then points in the
+    box's last cell and its first: against a numpy max + 1x1."""
+    f, _, _, w, b = points(4, P=300)
+    ex, ey, ez = EXTENT
+    for cells in ([(3, 5, 7)], [(ex - 1, ey - 1, ez - 1), (0, 0, 0)]):
+        rel = np.array([cells[i % len(cells)] for i in range(len(f))], np.int32)
+        in_box = np.ones(len(f), bool)
+        x, occ = tf.featurizer_fused(T(f), T(rel), T(in_box), T(w), T(b), EXTENT,
+                                     torch.float32)
+        assert int(occ.sum()) == len(cells)
+        for i, (cx, cy, cz) in enumerate(cells):
+            assert bool(occ[cx, cz, cy])
+            want = f[i::len(cells)].max(0) @ w + b
+            np.testing.assert_allclose(x[cx, cz, cy].numpy(), want, rtol=1e-5, atol=1e-5)
+        assert not x[~occ].any()

@@ -360,19 +360,40 @@ def _child_m8(child, co):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cap,with_extra", [(4096, True), (4096, False), (300, True)])
-def test_stream_extract_matches_xla(cap, with_extra):
+# (cap, with_extra, keep, shape); cap None = the kept count.  The kernel's
+# tile is 16384 cells: 8 x 6 x 12 is less than one, 13 x 29 x 61 more than
+# one and not a multiple.
+EXTRACT_CASES = [
+    pytest.param(4096, True, "random", (8, 6, 12), id="4096-True"),
+    pytest.param(4096, False, "random", (8, 6, 12), id="4096-False"),
+    pytest.param(300, True, "random", (8, 6, 12), id="300-True"),
+    pytest.param(64, True, "empty", (8, 6, 12), id="empty keep"),
+    pytest.param(200, True, "full", (8, 6, 12), id="all kept, cap < total"),
+    pytest.param(None, True, "random", (8, 6, 12), id="cap == total"),
+    pytest.param(6000, True, "random", (13, 29, 61), id="ragged n"),
+]
+
+
+@pytest.mark.parametrize("cap,with_extra,kind,shape", EXTRACT_CASES)
+def test_stream_extract_matches_xla(cap, with_extra, kind, shape):
     """Same rows in the same order as ``extract_sparse`` (also when the
-    capacity binds), same coords, same payload bits."""
+    capacity binds, equals the kept count, or nothing is kept), same
+    coords, same payload bits."""
     r = np.random.RandomState(10)
-    X, Z, Y, C, E = 8, 6, 12, 5, 3
-    keep = r.rand(X, Z, Y) < 0.4
+    (X, Z, Y), C, E = shape, 5, 3
+    keep = {"random": r.rand(X, Z, Y) < 0.4, "empty": np.zeros((X, Z, Y), bool),
+            "full": np.ones((X, Z, Y), bool)}[kind]
+    cap = int(keep.sum()) if cap is None else cap
     feats = r.randn(X, Z, Y, C).astype(np.float32)
     extra = r.randn(X, Z, Y, E).astype(np.float32) if with_extra else None
     gmin = np.array([-8, 16, -4], np.int32)
     box_j = JBox.create(gmin, (X * 2, Y * 2, Z * 2))
     box_t = Box.create(T(gmin), (X * 2, Y * 2, Z * 2))
-    grid, ex = jd.extract_sparse(feats, keep, box_j, 2, cap, extra=extra,
+    # jnp inputs: the reference's gather clamps the source index of rows
+    # past the kept count (beyond n when n is not a multiple of 32), as
+    # under jit; those rows are masked to zero
+    grid, ex = jd.extract_sparse(jnp.asarray(feats), keep, box_j, 2, cap,
+                                 extra=None if extra is None else jnp.asarray(extra),
                                  axis_order="xzy")
     coords, valid_t, vals_t = td.extract_sparse(T(keep), box_t, 2, cap, T(feats))
     np.testing.assert_array_equal(coords.numpy(), np.asarray(grid.coords))
@@ -387,7 +408,30 @@ def test_stream_extract_matches_xla(cap, with_extra):
         assert v0.shape == (cap, 0)
     vals, src, valid, total = stream_extract(T(keep), cap, T(feats))
     assert int(total) == int(keep.sum())
-    assert int(valid.sum()) == min(cap, int(keep.sum()))
+    n = min(cap, int(keep.sum()))
+    assert int(valid.sum()) == n and bool(valid[:n].all())
+    np.testing.assert_array_equal(src[:n].numpy(), np.flatnonzero(keep)[:n])
+    assert not vals[n:].any() and not src[n:].any()
+
+
+def test_stream_extract_workspace_epochs():
+    """The kernel's scratch: grows (zeroed) only for more tiles, a new
+    epoch on every call, never 0, and zeroed again when the 32-bit epoch
+    would wrap (a flag word of an old call could carry it)."""
+    from pasco_torch.ops.extract import _Workspace
+
+    ws = _Workspace()
+    buf, tiles, e1 = ws.take(5, torch.device("cpu"))
+    assert tiles == 5 and buf.shape == (5,) and not buf.any() and e1 == 1
+    buf.fill_(7)
+    buf2, tiles, e2 = ws.take(3, torch.device("cpu"))
+    assert buf2 is buf and tiles == 5 and e2 == 2
+    buf3, tiles, e3 = ws.take(9, torch.device("cpu"))
+    assert tiles == 9 and buf3.shape == (9,) and not buf3.any() and e3 == 3
+    buf3.fill_(7)
+    ws.epoch = (1 << 32) - 1
+    buf4, _, e4 = ws.take(9, torch.device("cpu"))
+    assert buf4 is buf3 and e4 == 1 and not buf4.any()
 
 
 def test_stream_extract_matches_pallas_interpret():
