@@ -36,12 +36,25 @@
    against the model's featurizer chain, with its device time per call
    (:func:`featurizer_phase`);
 5. runs ``run_scene_inference`` and the ``Evaluator`` on one scan;
-   then the same for the MIMO ensemble (n_infers=3, the slice's main
-   path): 3 scans, each 3 augmented views of one scene, through the
+   then the scene-adaptive box ladder (``AdaptiveForward``, the bench
+   path): rows 1-5 against their plain versions at the 256, 288 and 320
+   boxes, each on a scan that picks that box (every check of step 3, each
+   row's main case timed: :func:`ladder_kernel_phase`); 20 extractions
+   back to back alternating 352 -> 256 -> 320 -> 288, bit-exact
+   (:func:`alternating_extraction`); ``scripts_torch/bench.py``'s pipelined
+   protocol on ``bench.py``'s six scans through ``AdaptiveForward`` and
+   through the fixed 352 box in turns, with each scan's box, scans/s,
+   device ms per scan, peak memory and the launches per forward of every
+   box (:func:`bench_phase`); the 288 scan through 288 and 352, kept cells
+   identical and logits within the bf16 bound (:func:`two_boxes_check`);
+   then the MIMO ensemble (n_infers=3): the first 3 of ``bench.py``'s six
+   n_infers=3 scans, each 3 augmented views of one scene, through the
    forward (kept voxels for every subnet, at least 60 ``masked_conv3``
    and 12 ``stream_extract`` launches per forward), then
    ``run_scene_inference`` (4 outputs) and the ``Evaluator`` with the
-   PQ, SSC mIoU and ECE of every output;
+   PQ, SSC mIoU and ECE of every output, and the bench protocol on all
+   six; then ``scripts_torch/eval.py`` on the card on a fake val scan with
+   a released-format checkpoint at full widths (:func:`eval_cli_phase`);
 6. training, kernel phase: the differentiable conv of every residual
    block (``MaskedConv3Fn``: forward and data gradient on the conv kernel)
    at the train box (256, 256, 32), f=64, on the scan's s1 occupancy and a
@@ -67,25 +80,30 @@
    one sem-only step (``is_predict_panop=False``), one warm-up and 2
    timed panoptic steps.
 
-Prints the whole run's wall time and a JSON line with the kernels'
-numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
+Prints each phase's wall time, the whole run's, and a JSON line with the
+kernels' numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
 ``bound_by``, ``device_ms`` for rows 4-5 and 8; launches from the MIMO
-forward, the MIMO train steps and the two entry-point phases), then as its
-last line
+forward, the MIMO train steps and the two entry-point phases; rows 1-5
+again per smaller box, named by box, with the launches at that box in the
+n_infers=1 bench run), then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
 result line); so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import contextlib
 import dataclasses
 import json
+import multiprocessing as mp
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -97,6 +115,8 @@ TOL_REL, TOL_ABS = 2e-2, 2e-2
 # cores, f32 outside the tensor cores, HBM3.
 PEAK_BF16, PEAK_TF32, PEAK_F32, HBM_BYTES_S = 989e12, 495e12, 67e12, 3.35e12
 N_SCANS = 3
+BENCH_SCANS = 6            # bench.py's scans (its BENCH_SCANS default)
+LADDER = (256, 288, 320)   # the candidate boxes below the flagship's 352
 N_TRAIN_STEPS = 3
 MIMO_S = 3                 # the reference's MIMO headline config (bench.py:54)
 N_MIMO_TRAIN_STEPS = 2
@@ -134,29 +154,45 @@ def time_ms(fn, reps=5):
 
 def profile_call(fn, reps=7):
     """The device activities (kernels, memsets, copies) of one call of
-    ``fn()`` from ``torch.profiler``, each call profiled alone after a
-    warm-up: a list of ``reps`` lists of (name, ms).  A profile that records
-    no device activity at all (the profiler did so once on the card) is run
-    again, up to three times; then it raises."""
+    ``fn()``, from one ``torch.profiler`` session of ``reps`` calls, each run
+    alone (synchronised before and after) behind a marker kernel: a list of
+    lists of (name, ms), one per call recorded whole.  The profiler on the
+    card loses records now and then (a call, or a marker, so that two calls
+    read as one; earlier, one session per call recorded nothing at all), so
+    only the calls with the most common number of activities are kept; at
+    least half of them must be, else the session is run again, up to three
+    times, and then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    calls = []
-    for _ in range(reps):
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):                   # the session's first records can be lost
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                torch.cuda._sleep(1000)          # the marker ("spin_kernel")
+                torch.cuda.synchronize()
                 fn()
                 torch.cuda.synchronize()
-            acts = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-                    if e.device_type == DeviceType.CUDA]
-            if acts:
-                break
-        else:
-            raise AssertionError("profile_call: the profiler recorded no device activity")
-        calls.append(acts)
-    return calls
+        acts = sorted((e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
+                      for e in prof.events() if e.device_type == DeviceType.CUDA)
+        calls = []
+        for _, name, ms in acts:
+            if "spin_kernel" in name:
+                calls.append([])
+            elif calls:
+                calls[-1].append((name, ms))
+        calls = [c for c in calls if c]
+        if calls:
+            n = statistics.mode(len(c) for c in calls)
+            calls = [c for c in calls if len(c) == n]
+            if 2 * len(calls) >= reps:
+                return calls
+    raise AssertionError(f"profile_call: the profiler recorded {len(calls)} of {reps} calls "
+                         f"whole")
 
 
 def device_ms(calls, pattern=""):
@@ -207,6 +243,14 @@ def bound(flop, nbytes, peak=PEAK_BF16):
     ``nbytes`` moved through HBM, and which of the two bounds it."""
     ops, mem = flop / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def device_fields(fn, kernel):
+    """``device_ms``: the device time of one call of ``fn()`` from the
+    profiler (its kernel and any conversion it launches), and
+    ``kernel_device_ms``: that of the activities named ``kernel`` alone."""
+    calls = profile_call(fn)
+    return dict(device_ms=device_ms(calls), kernel_device_ms=device_ms(calls, kernel))
 
 
 def nbytes(*ts):
@@ -270,7 +314,7 @@ def conv3d_library(xm, w):
     return lambda: F.conv3d(xl, wl, padding=1)
 
 
-def conv_phase(cfg, inp, keep_ref):
+def conv_phase(cfg, inp, keep_ref, timed=True):
     """Kernel 1 (``masked_conv3``) at every main-path shape: the res-block
     conv2 form (BN affine + relu prologue; bias, skip, relu epilogue) at
     s1/s2/s4/s8 with the widths of the flagship, each on the scan's
@@ -280,8 +324,9 @@ def conv_phase(cfg, inp, keep_ref):
     refiner conv1 with the mask only on a 70% keep set).  Each against the
     plain version (the bound of :func:`_compare`), with its time, the plain
     version's, the library call's (:func:`conv3d_library`) and the bound
-    from this case's valid cells.  Returns the JSON row: the numbers of the
-    s1 near-dense case, every case under ``cases``."""
+    from this case's valid cells (without ``timed``, for the s1 near-dense
+    case only).  Returns the JSON row: the numbers of the s1 near-dense
+    case, every timed case under ``cases``."""
     from pasco_torch.ops import conv
     from pasco_torch.ops.dense_ops import bbox_mask, maxpool2_mask
 
@@ -319,6 +364,8 @@ def conv_phase(cfg, inp, keep_ref):
         got = conv.masked_conv3(x, m, w, tiles=tiles, **kw)
         ref = conv.masked_conv3_plain(x, m, w, **kw)
         errs.append(_compare(f"masked_conv3 {label} {(X, Z, Y, c)}", got, ref, m)[0])
+        if not timed and label != "s1 decoder, near dense":
+            continue
         xp = x if not kw else torch.where(mm, torch.relu(a * x.float() + cc).to(bf), zero)
         n_valid = int(m.sum())
         # bytes: x and skip at the valid cells, the mask, the weights and
@@ -336,9 +383,12 @@ def conv_phase(cfg, inp, keep_ref):
               f"{t['plain_ms']:.3f} ms, library_ms {t['library_ms']:.3f}, bound_ms "
               f"{t['bound_ms']:.3f} ({kind}), {t['bound_ms'] / t['ms']:.1%} of the bound",
               flush=True)
-        out.append(dict(case=label, shape=[X, Z, Y, c], **t))
         if label == "s1 decoder, near dense":
+            if timed:
+                t.update(device_fields(lambda: conv.masked_conv3(x, m, w, tiles=tiles, **kw),
+                                       "masked_conv3_kernel"))
             main = t
+        out.append(dict(case=label, shape=[X, Z, Y, c], **t))
         del x, got, ref, xp, kw
     return dict(name="masked_conv3", source="pasco_torch/csrc/masked_conv3.cu",
                 replaces="pasco_tpu/ops/pallas_conv.py:1159", max_abs_err=max(errs),
@@ -346,12 +396,15 @@ def conv_phase(cfg, inp, keep_ref):
 
 
 def _rand_fns(gen, dev):
-    """Seeded bf16 normals, f32 uniform vectors and a masking helper."""
+    """Seeded bf16 normals, f32 uniform vectors and a masking helper, drawn
+    on the card from a generator that ``gen`` seeds."""
+    g = torch.Generator(device=dev).manual_seed(int(torch.randint(1 << 62, (1,), generator=gen)))
+
     def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(device=dev, dtype=torch.bfloat16)
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
 
     def vec(n, lo=-0.1, hi=0.1):
-        return (torch.rand((n,), generator=gen) * (hi - lo) + lo).to(dev)
+        return torch.rand((n,), generator=g, device=dev) * (hi - lo) + lo
 
     def masked(x, m):
         return torch.where(m[..., None], x, torch.zeros((), dtype=x.dtype, device=dev))
@@ -366,14 +419,15 @@ def _report(name, label, shape, t, detail):
           f"{t['bound_ms'] / t['ms']:.1%} of the bound", flush=True)
 
 
-def down_phase(cfg, inp, gen):
+def down_phase(cfg, inp, gen, timed=True):
     """Kernel 2 (``down2_fused``) at every main-path shape: enc_s2, s4 and
     s8 on the scan's occupancy (the encoder's masks), with the flagship
     widths.  Each against the plain version (the bound of :func:`_compare`,
     exact zeros at invalid cells), with its time, the plain version's, the
     library call's (the stride-2 ``F.conv3d`` alone, ``channels_last_3d``)
-    and the bound from this case's valid cells.  Returns the JSON row: the
-    numbers of enc_s2, every case under ``cases``."""
+    and the bound from this case's valid cells (without ``timed``, for
+    enc_s2 only).  Returns the JSON row: the numbers of enc_s2, every timed
+    case under ``cases``."""
     from pasco_torch.ops import down
     from pasco_torch.ops.dense_ops import maxpool2_mask
 
@@ -394,6 +448,9 @@ def down_phase(cfg, inp, gen):
         got = down.down2_fused(*args, tiles=tiles)
         label = f"enc_s{sc} scan occupancy"
         errs.append(_compare(f"down2_fused {label}", got, down.down2_fused_plain(*args), m2)[0])
+        if not timed and sc != 2:
+            occ = m2
+            continue
         # library: the stride-2 conv alone (taps (ix, iy, iz) -> [Co, Ci, kX, kZ, kY])
         xl = x.permute(3, 0, 1, 2)[None]
         wl = w.reshape(2, 2, 2, ci, co).permute(4, 3, 0, 2, 1).contiguous(
@@ -405,6 +462,8 @@ def down_phase(cfg, inp, gen):
                           n_valid * 8 * ci * co * 2,
                           rows_bytes(x, occ.sum())
                           + nbytes(occ, m2, w, got, args[4], *args[5], *args[6]))
+        if timed and sc == 2:
+            t.update(device_fields(lambda: down.down2_fused(*args, tiles=tiles), "down2_kernel"))
         _report("down2_fused", label, (X, Z, Y, ci, co), t,
                 f"{n_valid} of {m2.numel()} output cells valid")
         out.append(dict(case=label, shape=[X, Z, Y, ci, co], **t))
@@ -415,7 +474,7 @@ def down_phase(cfg, inp, gen):
                 **{k: v for k, v in out[0].items() if k not in ("case", "shape")}, cases=out)
 
 
-def up_phase(cfg, inp, gen):
+def up_phase(cfg, inp, gen, timed=True):
     """Kernel 3 (``up_preamble``) at every main-path shape: dec_s4, s2 and
     s1 with the flagship widths, each twice: near dense (the child set
     ``upsample2(maxpool2(bbox)) & bbox``, the random-init path) and sparse
@@ -435,8 +494,9 @@ def up_phase(cfg, inp, gen):
     parent product dropped, must break the "deconv" bound, and one with the
     coordinates one cell off on any axis the "coords" bound, else the check
     is void.  Times and bounds from the "coords + skip" set; library: the
-    deconv alone, one ``F.conv_transpose3d``.  Returns the JSON row: the
-    numbers of dec_s1 near dense, every case under ``cases``."""
+    deconv alone, one ``F.conv_transpose3d``; without ``timed``, for dec_s1
+    near dense only.  Returns the JSON row: the numbers of dec_s1 near dense,
+    every timed case under ``cases``."""
     from pasco_torch.core.sparse import Box
     from pasco_torch.ops import deconv
     from pasco_torch.ops.dense_ops import (bbox_mask, cell_coords, maxpool2_mask,
@@ -508,6 +568,9 @@ def up_phase(cfg, inp, gen):
                     raise AssertionError(f"up_preamble check cannot see a wrong {vlabel} path "
                                          f"({label}, {glabel}: {miss} <= {tol})")
             del refs, bad
+            if not timed and label != "dec_s1 near dense":
+                del parent, skip, sets
+                continue
             args = sets[0][1]
             got = deconv.up_preamble(*args, tiles=tiles)
             # library: the generative deconv alone, one F.conv_transpose3d
@@ -524,6 +587,9 @@ def up_phase(cfg, inp, gen):
                               n_child * (ci + co + 3) * co * 2,
                               rows_bytes(parent, pkeep.sum()) + rows_bytes(skip, union.sum())
                               + nbytes(pkeep, child, union, got, args[7], args[-2]))
+            if timed and label == "dec_s1 near dense":
+                t.update(device_fields(lambda: deconv.up_preamble(*args, tiles=tiles),
+                                       "up_preamble_kernel"))
             _report("up_preamble", label, (X, Z, Y, ci, co), t,
                     f"{n_child} children, {int(union.sum())} union cells, "
                     f"{int(tiles.n_active)} of {tiles.n_tiles} tiles")
@@ -535,10 +601,12 @@ def up_phase(cfg, inp, gen):
                 **{k: v for k, v in main.items() if k not in ("case", "shape")}, cases=out)
 
 
-def kernel_phases(cfg, inp, gen, own=True):
-    """Each kernel against its plain version at main-path shapes.  With
-    ``own`` (the kernels of this checkout) each ``stream_extract`` call must
-    also be one kernel launch on the card."""
+def kernel_phases(cfg, inp, gen, own=True, timed=True):
+    """Each kernel against its plain version at main-path shapes of the
+    working box ``cfg.scene.box_extent``.  With ``own`` (the kernels of this
+    checkout) each ``stream_extract`` call must also be one kernel launch on
+    the card.  Without ``timed`` only each row's main case is timed, and
+    nothing runs under the profiler (no ``device_ms``)."""
     from pasco_torch import kernels
     from pasco_torch.ops import extract
 
@@ -551,10 +619,9 @@ def kernel_phases(cfg, inp, gen, own=True):
     rows = []
     keep_ref = bbox1 & (torch.rand((X, Z, Y), generator=gen) < 0.7).to(dev)
 
-    rows.append(conv_phase(cfg, inp, keep_ref))
-
-    rows.append(down_phase(cfg, inp, gen))
-    rows.append(up_phase(cfg, inp, gen))
+    rows.append(conv_phase(cfg, inp, keep_ref, timed))
+    rows.append(down_phase(cfg, inp, gen, timed))
+    rows.append(up_phase(cfg, inp, gen, timed))
 
     # --- kernel 4: stream_extract, bit-exact ------------------------------
     cases = [
@@ -574,15 +641,16 @@ def kernel_phases(cfg, inp, gen, own=True):
             if g.shape != r.shape or not torch.equal(g, r):
                 raise AssertionError(f"stream_extract {label}: {gname} differs")
         call = lambda k=keep, c=cap, p=pay: extract.stream_extract(k, c, p)  # noqa: E731
-        calls = profile_call(call)
-        dev_ms = device_ms(calls)
         print(f"check stream_extract {label}: bit-exact, kept {int(got[3])} of "
-              f"{keep.numel()}, cap {cap}, E {0 if pay is None else pay.shape[-1]}; device "
-              f"{dev_ms:.4f} ms a call, device activities per call "
-              f"{[name for name, _ in calls[0]]}", flush=True)
-        if own and any(len(c) != 1 or "extract_kernel" not in c[0][0] for c in calls):
-            raise AssertionError(f"stream_extract {label}: not one kernel launch per call: "
-                                 f"{calls}")
+              f"{keep.numel()}, cap {cap}, E {0 if pay is None else pay.shape[-1]}", flush=True)
+        if timed:
+            calls = profile_call(call)
+            dev_ms = device_ms(calls)
+            print(f"stream_extract {label}: device {dev_ms:.4f} ms a call, device activities "
+                  f"per call {[name for name, _ in calls[0]]}", flush=True)
+            if own and any(len(c) != 1 or "extract_kernel" not in c[0][0] for c in calls):
+                raise AssertionError(f"stream_extract {label}: not one kernel launch per "
+                                     f"call: {calls}")
         if fields is None:
             # no library call: one PyTorch call that compacts a capped,
             # ordered payload with its source rows does not exist
@@ -590,14 +658,18 @@ def kernel_phases(cfg, inp, gen, own=True):
             fields = timing_fields(
                 time_ms(call), time_ms(lambda: extract.stream_extract_plain(keep, cap, pay)),
                 None, 0, rows_bytes(pay, min(int(keep.sum()), cap)) + nbytes(keep, *got))
-            fields["device_ms"] = dev_ms
+            if timed:
+                fields["device_ms"] = dev_ms
     rows.append(dict(
         name="stream_extract", source="pasco_torch/csrc/stream_extract.cu",
         replaces="pasco_tpu/ops/pallas_extract.py:454", max_abs_err=0.0, **fields))
     for r in rows:
+        dev_t = (f", device {r['device_ms']:.4f} ms a call"
+                 + (f" (kernel {r['kernel_device_ms']:.4f})" if "kernel_device_ms" in r else "")
+                 if "device_ms" in r else "")
         print(f"kernel {r['name']}: max|d| {r['max_abs_err']:.4g}, {r['ms']:.3f} ms vs plain "
               f"{r['plain_ms']:.3f} ms, library_ms {r['library_ms']}, bound_ms "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){dev_t}", flush=True)
     return rows
 
 
@@ -673,6 +745,9 @@ def column_conv_phase(occ1, dev, guards=True):
             time_ms(lambda: cc.block_sparse_conv3_plain(x, w, mask, cap, bias=b)), lib_ms,
             3 * flop, rows_bytes(x, n_vis) + nbytes(w, mask, b, out), PEAK_TF32))
         t = fields[-1]
+        if len(fields) == 1:
+            t.update(device_fields(lambda: cc.block_sparse_conv3(x, w, mask, cap, bias=b),
+                                   "column_"))
         print(f"kernel column_conv3, {label}: {t['ms']:.3f} ms vs plain {t['plain_ms']:.3f} ms, "
               f"library_ms {lib_ms:.3f}, bound_ms {t['bound_ms']:.3f} ({t['bound_by']}, 3xTF32 "
               f"tensor-core peak; {100 * t['bound_ms'] / t['ms']:.1f}% of it), f32 FMA figure "
@@ -885,6 +960,9 @@ def train_conv_phase(cfg, col, gen, dev):
                            time_ms(lambda: conv.masked_conv3_plain(dym, m, w_t)),
                            time_ms(conv3d_library(dym, w_tb)), flop,
                            rows_bytes(dym, n_valid) + nbytes(m, wb, dym))
+        if label == "decoder, near dense":
+            dx.update(device_fields(lambda: conv.conv3_dx(dym, m, w, tiles),
+                                    "masked_conv3_kernel"))
         times[label] = dx
         dw_ms = time_ms(lambda: conv.conv3_weight_grad(xm, dym))
         for name, t in (("forward", fwd), ("dx", dx)):
@@ -1117,6 +1195,320 @@ def train_phase(cfg, cols, dev, n_sem=0, label="train"):
     return dict(kernels.LAUNCHES)
 
 
+def _bench_module():
+    """``scripts_torch/bench.py`` (its measuring function and helpers)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts_torch", "bench.py")
+    spec = importlib.util.spec_from_file_location("scripts_torch_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def with_box(cfg, side):
+    """``cfg`` with a ``side x side`` working box (the ladder's form)."""
+    return cfg.replace(scene=dataclasses.replace(
+        cfg.scene, box_extent=(side, side, cfg.scene.box_extent[2])))
+
+
+def unaugmented_scene(cfg, seed=3):
+    """One synthetic scan without augmentation, collated: the canonical
+    256x256x32 extent, the smallest box of the ladder."""
+    from pasco_torch.data.semantic_kitti.collate import collate
+    from pasco_torch.data.semantic_kitti.dataset import process_scene
+    from pasco_torch.data.synthetic import make_scene
+
+    rng = np.random.RandomState(seed)
+    scene = make_scene(rng, scene_size=cfg.scene.scene_size,
+                       n_points=min(cfg.capacity.num_points, 120000),
+                       point_feat_dim=cfg.model.in_channels - 6)
+    return collate([process_scene(scene, None, rng)], cfg, rng=rng)
+
+
+def host_scenes(kind, n_infers, n, seed, nice=0, out=None):
+    """Collated scenes of ``PaSCoConfig()`` at ``n_infers``, drawn on the
+    host (NumPy only, so a worker process draws them while the card works):
+    ``"eval"`` the scans of :func:`make_scans`, ``"train"`` those of
+    :func:`train_scenes`, ``"unaugmented"`` :func:`unaugmented_scene`.
+    ``nice`` lowers the drawing process's priority, so that it takes the
+    cores the main process leaves idle.  With ``out``, the scenes are
+    pickled to that file and the path is returned: the process that waits
+    for them then unpickles them when it needs them, not in the executor's
+    result thread while it times kernels."""
+    import pickle
+
+    from pasco_torch.core.config import PaSCoConfig
+
+    if nice:
+        os.nice(nice)
+    cfg = PaSCoConfig()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=n_infers))
+    if kind == "eval":
+        rng = np.random.RandomState(seed)
+        cols = [eval_scene(cfg, rng) for _ in range(n)]
+    elif kind == "train":
+        cols = train_scenes(cfg, n, seed)
+    else:
+        cols = [unaugmented_scene(cfg, seed)]
+    if out is None:
+        return cols
+    with open(out, "wb") as fh:
+        pickle.dump(cols, fh, protocol=pickle.HIGHEST_PROTOCOL)
+    return out
+
+
+def box_of(cfg, col):
+    from pasco_torch.inference.dispatch import candidate_boxes, pick_box
+
+    return pick_box(candidate_boxes(cfg), col.global_min, col.global_max)
+
+
+def ladder_kernel_phase(cfg, box_scans, gen):
+    """Rows 1-5 against their plain versions at each smaller box of the
+    ladder, on a scan that picks that box: every check of
+    :func:`kernel_phases`, each row's main case timed.  Returns the rows,
+    named by box."""
+    rows = []
+    for side, (col, inp) in box_scans.items():
+        if box_of(cfg, col)[0] != side:
+            raise AssertionError(f"the scan for box {side} picks {box_of(cfg, col)}")
+        print(f"-- kernels at box {side} (scan bbox {col.global_max - col.global_min + 1})",
+              flush=True)
+        for r in kernel_phases(with_box(cfg, side), inp, gen, timed=False):
+            r.pop("cases", None)
+            rows.append(dict(r, kernel=r["name"], name=f"{r['name']} (box {side})",
+                             box=[side, side, cfg.scene.box_extent[2]]))
+    return rows
+
+
+def alternating_extraction(cfg, box_scans, gen, n_calls=20):
+    """``stream_extract`` at dec_s1 (E = n_classes, the decoder cap) on the
+    global-bbox keep of each box's scan, ``n_calls`` calls back to back that
+    alternate 352 -> 256 -> 320 -> 288 (the tile count falls and rises on
+    one workspace), then every output against the plain version:
+    bit-exact."""
+    from pasco_torch.ops import extract
+
+    order = (352, 256, 320, 288)
+    cap = cfg.capacity.dec_s1
+    calls = {}
+    for side in order:
+        _, inp = box_scans[side]
+        _, _, keep = scan_masks(with_box(cfg, side), inp)
+        randn, _, _ = _rand_fns(gen, keep.device)
+        pay = randn(*keep.shape, cfg.model.n_classes)
+        calls[side] = (keep, cap, pay, extract.stream_extract_plain(keep, cap, pay))
+    outs = [(order[i % 4], extract.stream_extract(*calls[order[i % 4]][:3]))
+            for i in range(n_calls)]
+    torch.cuda.synchronize()
+    for i, (side, got) in enumerate(outs):
+        for name, g, r in zip(("vals", "src", "valid", "total"), got, calls[side][3]):
+            if g.shape != r.shape or not torch.equal(g, r):
+                raise AssertionError(f"stream_extract call {i} (box {side}): {name} differs")
+    tiles = {s: -(-calls[s][0].numel() // extract.TILE) for s in order}
+    print(f"check stream_extract alternating boxes: {n_calls} calls back to back "
+          f"({' -> '.join(map(str, order))}, tiles {tiles}), bit-exact every call", flush=True)
+
+
+def counting_forward(net):
+    """An ``AdaptiveForward`` over ``net`` that counts the kernel launches of
+    each box's forwards (host side: no call waits for the card), its
+    warm-up included."""
+    from pasco_torch import kernels
+    from pasco_torch.inference.dispatch import AdaptiveForward
+
+    class CountingForward(AdaptiveForward):
+        def __init__(self):
+            super().__init__(net)
+            self.per_box, self.calls = {}, {}
+
+        def __call__(self, inp, box=None):
+            box = box if box is not None else self.box_for(inp)
+            before = dict(kernels.LAUNCHES)
+            out = super().__call__(inp, box)
+            acc = self.per_box.setdefault(box, dict.fromkeys(before, 0))
+            for k, v in kernels.LAUNCHES.items():
+                acc[k] += v - before[k]
+            self.calls[box] = self.calls.get(box, 0) + 1
+            return out
+
+    return CountingForward()
+
+
+def bench_phase(cfg, scans, net, label):
+    """``scripts_torch/bench.py``'s pipelined protocol on ``bench.py``'s
+    scans through :class:`AdaptiveForward` and through the fixed 352 box, in
+    turns (adaptive, fixed, fixed, adaptive), after one warm-up forward per
+    candidate box.  Prints each scan's box, scans/s and device ms per scan
+    of each run, the peak memory and the launches per forward of each box,
+    which must reach :func:`forward_launch_floor`.  The counts are set to 0
+    just before the warm-up and read after the last run.  Returns
+    (results by mode, launches per box, forwards per box)."""
+    from pasco_torch import kernels
+
+    bench = _bench_module()
+    dev = scans[0][1].point_feats.device
+    fwd = counting_forward(net)
+    inps = [inp for _, inp in scans]
+    boxes = [box_of(cfg, col) for col, _ in scans]
+    print(f"{label} boxes: {[b[0] for b in boxes]}", flush=True)
+    syncs = bench.host_syncs(lambda: bench.reduced(net(inps[0], box_extent=boxes[0])))
+    print(f"{label}: {len(syncs)} host syncs per forward {syncs}", flush=True)
+    kernels.reset_launches()
+    fwd.warmup(inps[0])
+    res = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mode in ("adaptive", "fixed", "fixed", "adaptive"):
+        bx = boxes if mode == "adaptive" else [fwd.cands[-1]] * len(boxes)
+        r = bench.measure(fwd, inps, bx, iters=2)
+        res.setdefault(mode, []).append(r)
+        print(f"{label} {mode}: {r['scans_per_sec']:.4f} scans/s, device "
+              f"{statistics.mean(r['device_ms']):.3f} ms/scan "
+              f"({', '.join(f'{m:.2f}' for m in r['device_ms'])}), host enqueue "
+              f"{r['enqueue_s']:.3f} s of {r['wall_s']:.3f} s", flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    floor = forward_launch_floor(cfg.model.n_infers)
+    per_forward = {b[0]: {k: v / fwd.calls[b] for k, v in fwd.per_box[b].items() if v}
+                   for b in sorted(fwd.per_box)}
+    print(f"{label}: peak {peak:.3f} GB, launches per forward by box {per_forward} "
+          f"(floors {floor}), forwards by box "
+          f"{ {b[0]: n for b, n in sorted(fwd.calls.items())} }", flush=True)
+    short = {(b[0], k): fwd.per_box[b][k] / fwd.calls[b] for b in fwd.per_box
+             for k in floor if fwd.per_box[b][k] < floor[k] * fwd.calls[b]}
+    if short:
+        raise AssertionError(f"{label}: kernels launched too rarely per forward: {short}")
+    for mode in ("adaptive", "fixed"):
+        rs = res[mode]
+        print(f"{label} {mode} (both runs): scans/s {[round(r['scans_per_sec'], 4) for r in rs]}, "
+              f"device ms/scan {[round(statistics.mean(r['device_ms']), 3) for r in rs]}",
+              flush=True)
+    return res, fwd.per_box, fwd.calls
+
+
+def two_boxes_check(cfg, net, scan, small):
+    """One scan through the ``small`` box that covers it and through the
+    largest: the kept cells of every decoder scale and subnet identical
+    (then the extraction coords and masks are identical row by row: a
+    shared box minimum keeps the flat-index order), the dense semantic
+    logits at every valid cell and the query logits within the bf16 bound.
+    A kept cell that flips is printed with the margin between its top two
+    logits, which must lie within that bound."""
+    from pasco_torch.inference.dispatch import candidate_boxes
+
+    col, inp = scan
+    big = candidate_boxes(cfg)[-1]
+    got = {}
+    for box in (small, big):
+        dense, hooks = {}, []
+        for sc in (1, 2, 4):
+            hooks.append(getattr(net, f"dec_s{sc}").register_forward_hook(
+                lambda m, a, o, sc=sc: dense.__setitem__(sc, (o[1], o[2], o[4]))))
+        try:
+            with torch.no_grad():
+                got[box] = (net(inp, box_extent=box), dense)
+        finally:
+            for h in hooks:
+                h.remove()
+    (out_s, dense_s), (out_b, dense_b) = got[small], got[big]
+    flips = {}
+    for sc in (1, 2, 4):
+        sem_s, top_s, msk_s = dense_s[sc]
+        sem_b, top_b, msk_b = dense_b[sc]
+        X, Z, Y = msk_s.shape
+        inner = (slice(0, X), slice(0, Z), slice(0, Y))
+        if msk_b.sum() != msk_b[inner].sum():
+            raise AssertionError(f"s{sc}: valid cells outside the {small} box")
+        if not torch.equal(msk_s, msk_b[inner]):
+            raise AssertionError(f"s{sc}: the valid cells differ between the boxes")
+        a, b = sem_s.float(), sem_b[inner].float()
+        err = (a - b)[msk_s].abs().max().item()
+        tol = TOL_REL * b[msk_s].abs().max().item() + TOL_ABS
+        keep_s = (top_s != 0) & msk_s[..., None]
+        keep_b = (top_b[inner] != 0) & msk_s[..., None]
+        flip = keep_s != keep_b
+        top2 = b.topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1])[flip]
+        flips[sc] = int(flip.sum())
+        print(f"check box {small[0]} against {big[0]}, dec_s{sc}: {int(msk_s.sum())} valid "
+              f"cells, sem logits max|d| {err:.4g} (bound {tol:.4g}), kept "
+              f"{int(keep_s.sum())} / {int(keep_b.sum())}, {flips[sc]} flipped"
+              + (f", margins {[round(v, 4) for v in margin.tolist()[:20]]}" if flips[sc] else ""),
+              flush=True)
+        if not err <= tol:
+            raise AssertionError(f"dec_s{sc}: sem logits differ between boxes: {err} > {tol}")
+        if flips[sc] and not margin.max().item() <= tol:
+            raise AssertionError(f"dec_s{sc}: a kept cell flipped at margin "
+                                 f"{margin.max().item()} > {tol}")
+    q_s, q_b = out_s.predictor.query_logits.float(), out_b.predictor.query_logits.float()
+    q_err = (q_s - q_b).abs().max().item()
+    q_tol = TOL_REL * q_b.abs().max().item() + TOL_ABS
+    print(f"check box {small[0]} against {big[0]}: query logits max|d| {q_err:.4g} "
+          f"(bound {q_tol:.4g})", flush=True)
+    if not q_err <= q_tol:
+        raise AssertionError(f"query logits differ between boxes: {q_err} > {q_tol}")
+    if not any(flips.values()):
+        for which in ("sem_grids", "panop_grids"):
+            for sc in (1, 2, 4):
+                g, h = getattr(out_s, which)[sc], getattr(out_b, which)[sc]
+                if not (torch.equal(g.coords, h.coords) and torch.equal(g.mask, h.mask)):
+                    raise AssertionError(f"{which}[{sc}]: coords or masks differ between boxes")
+        l_err = (out_s.sem_logits[1].float() - out_b.sem_logits[1].float()).abs().max().item()
+        print(f"check box {small[0]} against {big[0]}: extraction coords and masks identical "
+              f"at every scale and subnet; extracted s1 logits max|d| {l_err:.4g}", flush=True)
+
+
+def eval_cli_phase():
+    """``scripts_torch/eval.py`` ``main()`` on the card: the fake val scan of
+    ``tests/test_eval_script.py`` in a temporary directory, the
+    ``flagship_narrow`` preset (full widths) and a released-format
+    ``--torch_ckpt`` from ``synthetic_reference_state_dict`` at those widths
+    and the scan's 8 input features.  Every table must print."""
+    import contextlib as cl
+    import importlib.util
+    import io
+    import tempfile
+
+    from pasco_torch.inference.evaluate import eval_config
+    from pasco_torch.training.convert_torch import synthetic_reference_state_dict
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "fake_val_scan", os.path.join(here, "tests", "test_eval_script.py"))
+    fake = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake)
+    spec = importlib.util.spec_from_file_location(
+        "scripts_torch_eval", os.path.join(here, "scripts_torch", "eval.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    m = eval_config("flagship_narrow", 1).model
+    with tempfile.TemporaryDirectory() as tmp:
+        fake._write_fake_val_scan(tmp)
+        sd = synthetic_reference_state_dict(
+            np.random.RandomState(3), n_infers=1, f=m.f, n_classes=m.n_classes, in_channels=8,
+            hidden_dim=m.transformer.hidden_dim, num_queries=m.transformer.num_queries,
+            dim_feedforward=m.transformer.dim_feedforward)
+        ckpt = os.path.join(tmp, "pasco_single.ckpt")
+        torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}},
+                   ckpt)
+        argv, buf = sys.argv, io.StringIO()
+        sys.argv = ["eval.py", "--dataset_root", tmp, "--torch_ckpt", ckpt, "--n_infers", "1",
+                    "--limit_batches", "1", "--config", "flagship_narrow"]
+        try:
+            with cl.redirect_stdout(buf):
+                cli.main()
+        finally:
+            sys.argv = argv
+    out = buf.getvalue()
+    print(out, flush=True)
+    for want in ("mIoU", "Prec", "PQ", "ins ECE", "ssc ECE ne", "inference time:",
+                 "ensemble time:", "subnet 0", "ensemble", "per-class PQ"):
+        if want not in out:
+            raise AssertionError(f"scripts_torch/eval.py printed no {want!r}")
+    print("eval CLI (flagship_narrow, --torch_ckpt, on the card): every table printed",
+          flush=True)
+
+
 def scene_inference_phase(cfg, net, scan):
     """``run_scene_inference`` on one scan (S + 1 outputs: the subnets,
     then the ensemble) and the ``Evaluator`` against the scan's
@@ -1149,14 +1541,93 @@ def scene_inference_phase(cfg, net, scan):
           flush=True)
 
 
+def run_phases(jobs, dev, lap):
+    """Every phase after the build (see the module docstring), on the
+    scenes of ``jobs`` (futures of :func:`host_scenes`).  Returns the
+    kernel rows at 352, the rows of the smaller boxes, the launches by box
+    of the n_infers=1 bench run, those of the MIMO forward, the training
+    conv's row and the launches of the MIMO train steps."""
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.models.unet import build_net, scene_to_model_input
+
+    def cols_of(name):
+        import pickle
+
+        t0 = time.perf_counter()
+        cols = jobs[name].result()
+        if time.perf_counter() - t0 > 1:
+            print(f"waited {time.perf_counter() - t0:.1f} s for the {name} scenes", flush=True)
+        if isinstance(cols, str):
+            with open(cols, "rb") as fh:
+                cols = pickle.load(fh)
+        return cols
+
+    def scans_of(name):
+        return [(col, scene_to_model_input(col, dev)) for col in cols_of(name)]
+
+    cfg = PaSCoConfig()
+    # bench.py's six scans (RandomState(0)); the first N_SCANS drive the
+    # forward phase
+    scans = scans_of("scans")
+    gen = torch.Generator().manual_seed(0)
+    rows = kernel_phases(cfg, scans[0][1], gen)
+    rows.append(column_conv_phase(scan_masks(cfg, scans[0][1])[1], dev))
+    lap("kernels at box 352")
+
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    forward_phase(cfg, scans[:N_SCANS], net)
+    rows.append(featurizer_phase(cfg, scans[0][1], net))
+    scene_inference_phase(cfg, net, scans[0])
+    lap("forward, n_infers 1")
+
+    # The box ladder (this slice): rows 1-5 at every smaller box, the
+    # extraction alternating between boxes, the bench protocol through
+    # AdaptiveForward against the fixed box, one scan at two boxes.
+    by_box = {box_of(cfg, col)[0]: (col, inp) for col, inp in reversed(scans)}
+    box_scans = {256: scans_of("box256")[0], **{b: by_box[b] for b in LADDER[1:]}}
+    box_rows = ladder_kernel_phase(cfg, box_scans, gen)
+    alternating_extraction(cfg, {352: scans[0], **box_scans}, gen)
+    lap("kernels at boxes 256, 288, 320")
+    _, per_box, _ = bench_phase(cfg, scans, net, "bench n_infers=1")
+    two_boxes_check(cfg, net, by_box[288], box_of(cfg, by_box[288][0]))
+    lap("bench protocol, n_infers 1")
+    del net, scans, box_scans, by_box     # the MIMO forward's peak holds only its own state
+    torch.cuda.empty_cache()
+
+    # The MIMO ensemble, on bench.py's six n_infers=3 scans (the first
+    # N_SCANS drive the forward phase).
+    cfg3 = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=MIMO_S))
+    net3 = build_net(cfg3, dev)
+    net3.reset_parameters(torch.Generator().manual_seed(0))
+    scans3 = scans_of("scans3")
+    launches = forward_phase(cfg3, scans3[:N_SCANS], net3, "MIMO forward")
+    scene_inference_phase(cfg3, net3, scans3[0])
+    lap("forward, n_infers 3")
+    bench_phase(cfg3, scans3, net3, "bench n_infers=3")
+    lap("bench protocol, n_infers 3")
+    del net3, scans3
+    torch.cuda.empty_cache()
+    eval_cli_phase()
+    lap("eval CLI")
+
+    train_cols = cols_of("train")
+    dx_row = train_conv_phase(cfg, train_cols[0], gen, dev)
+    narrow_step_check(dev)
+    lap("training conv and narrow step")
+    train_phase(cfg, train_cols, dev)
+    del train_cols
+    train_launches = train_phase(cfg3, cols_of("train3"), dev, n_sem=1, label="MIMO train")
+    lap("training")
+    return rows, box_rows, per_box, launches, dx_row, train_launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pasco_torch.core.config import PaSCoConfig
     from pasco_torch import kernels
-    from pasco_torch.models.unet import build_net
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1167,45 +1638,46 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    t0 = time.perf_counter()
-    kernels.lib()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    # The scenes (the draws of make_scans and train_scenes) are drawn on the
+    # host while the kernels build (bench.py's n_infers=1 scans) and, by
+    # worker processes at the lowest priority, while the card works.
+    pool = cf.ProcessPoolExecutor(max_workers=4, mp_context=mp.get_context("spawn"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        jobs = {name: pool.submit(host_scenes, *args, 19, os.path.join(tmp, f"{name}.pkl"))
+                for name, args in (
+            ("scans3", ("eval", MIMO_S, BENCH_SCANS, 0)),
+            ("box256", ("unaugmented", 1, 1, 3)),
+            ("train", ("train", 1, 1 + N_TRAIN_STEPS, 0)),
+            ("train3", ("train", MIMO_S, 2 + N_MIMO_TRAIN_STEPS, 2)))}
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(1) as build_pool:
+            build = build_pool.submit(kernels.lib)     # nvcc in subprocesses
+            jobs["scans"] = cf.Future()
+            jobs["scans"].set_result(host_scenes("eval", 1, BENCH_SCANS, 0))
+            print(f"bench scans drawn: {time.perf_counter() - t0:.1f} s", flush=True)
+            build.result()
+        print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+        t_lap = [time.perf_counter()]
 
-    cfg = PaSCoConfig()
-    scans = make_scans(cfg, N_SCANS, dev)
-    gen = torch.Generator().manual_seed(0)
-    rows = kernel_phases(cfg, scans[0][1], gen)
-    rows.append(column_conv_phase(scan_masks(cfg, scans[0][1])[1], dev))
+        def lap(name):
+            now = time.perf_counter()
+            print(f"phase {name}: {now - t_lap[0]:.1f} s", flush=True)
+            t_lap[0] = now
 
-    net = build_net(cfg, dev)
-    net.reset_parameters(torch.Generator().manual_seed(0))
-    forward_phase(cfg, scans, net)
-    rows.append(featurizer_phase(cfg, scans[0][1], net))
-    scene_inference_phase(cfg, net, scans[0])
-    del net, scans          # the MIMO forward's peak holds only its own state
-    torch.cuda.empty_cache()
-
-    # The MIMO ensemble: the slice's main path.
-    cfg3 = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=MIMO_S))
-    net3 = build_net(cfg3, dev)
-    net3.reset_parameters(torch.Generator().manual_seed(0))
-    scans3 = make_scans(cfg3, N_SCANS, dev, seed=1)
-    launches = forward_phase(cfg3, scans3, net3, "MIMO forward")
-    scene_inference_phase(cfg3, net3, scans3[0])
-    del net3, scans3
-
-    train_cols = train_scenes(cfg, 1 + N_TRAIN_STEPS)
-    dx_row = train_conv_phase(cfg, train_cols[0], gen, dev)
-    narrow_step_check(dev)
-    train_phase(cfg, train_cols, dev)
-    del train_cols
-    train_launches = train_phase(cfg3, train_scenes(cfg3, 2 + N_MIMO_TRAIN_STEPS, seed=2),
-                                 dev, n_sem=1, label="MIMO train")
+        rows, box_rows, per_box, launches, dx_row, train_launches = run_phases(
+            jobs, dev, lap)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
 
     for r in rows:
         r.setdefault("launches", launches[r["name"]])
     dx_row["launches"] = train_launches["conv3_dx"]
     rows.append(dx_row)
+    for r in box_rows:        # launches at that box in the bench run (warm-up included)
+        r["launches"] = per_box[tuple(r.pop("box"))][r.pop("kernel")]
+    rows += box_rows
     for r in rows:
         r["route"] = "cuda"
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)

@@ -37,7 +37,7 @@ not ported yet (ROADMAP.md, queue 1).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -391,7 +391,8 @@ class DensePaSCoNet(nn.Module):
                 labelweights: Optional[Dict[int, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
                 mc_dropout: bool = False,
-                is_predict_panop: bool = True) -> ModelOutput:
+                is_predict_panop: bool = True,
+                box_extent: Optional[Tuple[int, int, int]] = None) -> ModelOutput:
         """One scene.  In training mode (``self.training``) ``labelweights``
         (scale -> [n_classes] completion weights) weight the decoder caps'
         sampling scores, and ``generator`` (on the input's device) draws the
@@ -399,7 +400,10 @@ class DensePaSCoNet(nn.Module):
         ``is_predict_panop=False`` (the sem-only pretraining phase) skips
         the refiners and the transformer, as the reference does
         (``dense_unet.py:1384, 1491``): ``panop_grids`` is empty,
-        ``sem_logits_pruned`` zero and ``predictor`` None."""
+        ``sem_logits_pruned`` zero and ``predictor`` None.  ``box_extent``
+        is the working box of this call (``cfg.scene.box_extent`` by
+        default); :class:`~pasco_torch.inference.dispatch.AdaptiveForward`
+        picks it per scan from ``cfg.scene.box_candidates``."""
         if mc_dropout:
             raise NotImplementedError(MC_DROPOUT_NOT_PORTED)
         train = self.training
@@ -408,7 +412,7 @@ class DensePaSCoNet(nn.Module):
         cap = cfg.capacity
         S = m.n_infers
         cd = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
-        box = Box.create(inp.global_min, cfg.scene.box_extent)
+        box = Box.create(inp.global_min, box_extent or cfg.scene.box_extent)
         ex, ey, ez = box.extent
 
         # ---- point MLP + scatter-max featurizer --------------------------

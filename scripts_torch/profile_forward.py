@@ -2,13 +2,15 @@
 step, on one GPU.
 
 Usage:
-    python scripts_torch/profile_forward.py [--n-infers 1] [--seed 0] [--out build/profile]
+    python scripts_torch/profile_forward.py [--n-infers 1] [--seed 0] [--scan 0] [--box 352] [--out build/profile]
     python scripts_torch/profile_forward.py --train [--n-infers 1] [--seed 0] [--out build/profile]
 
-One synthetic scan (drawn as ``chip_smoke.py`` draws them: ``--n-infers``
-augmented views of one scene) goes through ``PaSCoConfig()`` at
-``n_infers`` (1: PaSCo-single, 3: the MIMO ensemble) with seeded random
-init, after two warm-ups.  Prints
+One synthetic scan (drawn as ``chip_smoke.py`` and ``bench.py`` draw them:
+``--n-infers`` augmented views of one scene; ``--scan k`` takes the k-th of
+the seed's draws) goes through ``PaSCoConfig()`` at ``n_infers`` (1:
+PaSCo-single, 3: the MIMO ensemble) with seeded random init, after two
+warm-ups, at the working box ``--box SIDE`` (``SIDE x SIDE x 32``; by
+default the configured 352 box).  Prints
 
 1. wall and device ms of one forward without the profiler (medians of 3;
    device time from CUDA events) and the peak device memory;
@@ -89,8 +91,9 @@ def device_ms(fn) -> float:
     return a.elapsed_time(b)
 
 
-def module_times(net, inp) -> dict:
-    """Device ms per top-level module of one forward (CUDA events)."""
+def module_times(net, forward) -> dict:
+    """Device ms per top-level module of one ``forward()`` of ``net`` (CUDA
+    events)."""
     marks = []
     hooks = []
     for name, mod in net.named_children():
@@ -106,7 +109,7 @@ def module_times(net, inp) -> dict:
             marks[i] = (name, marks[i][1], ev)
 
         hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-    total = device_ms(lambda: net(inp))
+    total = device_ms(forward)
     for h in hooks:
         h.remove()
     per = defaultdict(float)
@@ -257,6 +260,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-infers", type=int, default=1, help="MIMO subnets (1 or 3)")
+    ap.add_argument("--scan", type=int, default=0, help="which of the seed's scans")
+    ap.add_argument("--box", type=int, default=0,
+                    help="working box side (256/288/320/352); 0: the configured box")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     ap.add_argument("--train", action="store_true",
                     help="profile one train step instead of one forward")
@@ -278,34 +284,38 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     cfg = PaSCoConfig()
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=args.n_infers))
-    (_, inp), = make_scans(cfg, 1, dev, seed=args.seed)
+    _, inp = make_scans(cfg, args.scan + 1, dev, seed=args.seed)[args.scan]
+    box = (args.box, args.box, cfg.scene.box_extent[2]) if args.box else cfg.scene.box_extent
     net = build_net(cfg, dev)
     net.reset_parameters(torch.Generator().manual_seed(args.seed))
 
-    res = {}
+    def forward():
+        return net(inp, box_extent=box)
+
+    res = {"box": list(box)}
     with torch.no_grad():
         for _ in range(2):
-            net(inp)
+            forward()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         walls, devs = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            devs.append(device_ms(lambda: net(inp)))
+            devs.append(device_ms(forward))
             walls.append(1e3 * (time.perf_counter() - t0))
         res["wall_ms"] = statistics.median(walls)
         res["device_ms"] = statistics.median(devs)
         res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        res["modules_ms"] = module_times(net, inp)
+        res["modules_ms"] = module_times(net, forward)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            net(inp)
+            forward()
             torch.cuda.synchronize()
     trace = os.path.join(args.out, "forward_trace.json")
     prof.export_chrome_trace(trace)
     res.update(kernel_table(trace))
 
-    print(f"forward: wall {res['wall_ms']:.3f} ms, device {res['device_ms']:.3f} ms, "
-          f"peak {res['peak_gb']:.3f} GB")
+    print(f"forward at box {tuple(box)}: wall {res['wall_ms']:.3f} ms, device "
+          f"{res['device_ms']:.3f} ms, peak {res['peak_gb']:.3f} GB")
     print("device ms per module (CUDA events):")
     for k, v in res["modules_ms"].items():
         print(f"  {k:24s} {v:9.3f}")

@@ -479,6 +479,119 @@ def test_featurizer_scan_box_nan_pool(dev):
     assert 0 < int(occ.sum()) < int(in_box.sum())
 
 
+# The smaller boxes of the flagship's ladder (SceneConfig.box_candidates):
+# every kernel of the inference path at the extents AdaptiveForward gives it
+# there ([X, Z, Y] = side / scale, 32 / scale, side / scale).
+LADDER = (256, 288, 320)
+
+
+def _ladder_shape(side, scale):
+    return (side // scale, 32 // scale, side // scale)
+
+
+@pytest.mark.parametrize("side", LADDER)
+@pytest.mark.parametrize("scale,ch", [(1, 64), (2, 128), (4, 256), (8, 256)])
+def test_masked_conv3_at_ladder_boxes(dev, side, scale, ch):
+    """The res-block conv2 form (prologue, bias, skip, relu) at every stage
+    extent of the box; at s8, Y = 32, 36 and 40 leave last y tiles of 16, 4
+    and 8 rows."""
+    g = _gen()
+    shape = _ladder_shape(side, scale)
+    m = _mask(g, dev, shape, 0.5)
+    x = _randn(g, dev, *shape, ch)
+    w = _randn(g, dev, 27, ch, ch, scale=(27 * ch) ** -0.5)
+    kw = dict(bias=torch.randn(ch, generator=g).to(dev) * 0.1,
+              affine=(torch.rand(ch, generator=g).to(dev) + 0.5,
+                      torch.randn(ch, generator=g).to(dev) * 0.1),
+              relu_in=True, skip=_randn(g, dev, *shape, ch), relu_out=True)
+    _nan_pool((*shape, ch), dev)
+    _check(conv.masked_conv3(x, m, w, **kw), conv.masked_conv3_plain(x, m, w, **kw), m)
+
+
+@pytest.mark.parametrize("side", LADDER)
+@pytest.mark.parametrize("scale,ci,co", [(1, 64, 128), (2, 128, 256), (4, 256, 256)])
+@pytest.mark.parametrize("p", [0.5, 0.03])
+def test_down2_fused_at_ladder_boxes(dev, side, scale, ci, co, p):
+    """enc_s2/s4/s8 at the box (even extents at every input), near dense
+    and at a scan-like occupancy."""
+    g = _gen()
+    shape = _ladder_shape(side, scale)
+    m = _mask(g, dev, shape, p)
+    m2 = maxpool2_mask(m)
+    vec = lambda lo: (torch.rand(co, generator=g) + lo).to(dev)  # noqa: E731
+    args = (_randn(g, dev, *shape, ci), m, m2, _randn(g, dev, 8, ci, co, scale=(8 * ci) ** -0.5),
+            vec(-0.5), (vec(0.5), vec(-0.5)), (vec(0.5), vec(-0.5)))
+    _nan_pool((*m2.shape, co), dev)
+    _check(down.down2_fused(*args), down.down2_fused_plain(*args), m2)
+
+
+@pytest.mark.parametrize("side", LADDER)
+@pytest.mark.parametrize("scale,ci,co", [(4, 256, 256), (2, 256, 128), (1, 128, 64)])
+def test_up_preamble_at_ladder_boxes(dev, side, scale, ci, co):
+    """dec_s4/s2/s1 at the box: the parent extent at 2 * scale, a near-dense
+    child set and a sparse skip, a box corner below the origin."""
+    g = _gen()
+    cshape = _ladder_shape(side, scale)
+    pshape = _ladder_shape(side, 2 * scale)
+    pkeep = _mask(g, dev, pshape, 0.8)
+    child = upsample2_mask(pkeep) & _mask(g, dev, cshape, 0.9)
+    skip_mask = _mask(g, dev, cshape, 0.05)
+    union = child | skip_mask
+    skip = torch.where(skip_mask[..., None], _randn(g, dev, *cshape, co),
+                       torch.zeros((), dtype=torch.bfloat16, device=dev))
+    box = Box.create(torch.tensor([-8, 16, -4], device=dev), (side, side, 32))
+    vec = lambda n, lo: (torch.rand(n, generator=g) + lo).to(dev)  # noqa: E731
+    args = (_randn(g, dev, *pshape, ci), pkeep, child, union, skip, box, scale,
+            _randn(g, dev, 8, ci, co, scale=ci ** -0.5), vec(co, -0.5),
+            (vec(co, 0.5), vec(co, -0.5)), (vec(co + 3, 0.5), vec(co + 3, -0.5)),
+            _randn(g, dev, co + 3, co, scale=0.1), vec(co, -0.5))
+    _nan_pool((*cshape, co), dev)
+    _check(deconv.up_preamble(*args), deconv.up_preamble_plain(*args), union)
+
+
+@pytest.mark.parametrize("side", LADDER)
+@pytest.mark.parametrize("p,cap,e", [(0.9, 400000, 20), (0.1, 150016, 64), (0.5, 400000, 0)])
+def test_stream_extract_at_ladder_boxes(dev, side, p, cap, e):
+    """s1 of the box: 128, 162 and 200 tiles; the decoder cap binding, a
+    refiner payload, rows only."""
+    g = _gen()
+    shape = _ladder_shape(side, 1)
+    keep = _mask(g, dev, shape, p)
+    _extract_checked(keep, cap, _randn(g, dev, *shape, e) if e else None)
+
+
+def test_stream_extract_alternating_boxes(dev):
+    """20 calls back to back at s1 of 352 -> 256 -> 320 -> 288 (the tile
+    count falls and rises on one workspace), then each bit-exact against
+    the plain version."""
+    g = _gen()
+    sides = (352, 256, 320, 288)
+    calls = {s: (_mask(g, dev, _ladder_shape(s, 1), 0.8), 400000,
+                 _randn(g, dev, *_ladder_shape(s, 1), 20)) for s in sides}
+    outs = [(sides[i % 4], extract.stream_extract(*calls[sides[i % 4]])) for i in range(20)]
+    for side, got in outs:
+        ref = extract.stream_extract_plain(*calls[side])
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and torch.equal(a, b), side
+
+
+def test_forward_box_288_against_352(dev):
+    """The flagship forward (seeded random init) of bench.py's third scan,
+    which picks the 288 box, through 288 and through 352
+    (``chip_smoke.two_boxes_check``: kept cells identical, logits within the
+    bf16 bound)."""
+    import chip_smoke as cs
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.models.unet import build_net
+
+    cfg = PaSCoConfig()
+    scan = cs.make_scans(cfg, 3, dev)[2]
+    assert cs.box_of(cfg, scan[0]) == (288, 288, 32)
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    cs.two_boxes_check(cfg, net, scan, (288, 288, 32))
+
+
 def test_wrappers_raise_on_wrong_input(dev):
     x = torch.zeros((4, 4, 4, 64), device=dev)           # f32, not bf16
     m = torch.ones((4, 4, 4), dtype=torch.bool, device=dev)

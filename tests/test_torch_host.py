@@ -200,3 +200,75 @@ def test_connected_components_identical(p):
     got = port.connected_components_26(mask)
     assert_same(ref.connected_components_26(mask), got)
     assert got[1] > 1
+
+
+def _seeded_summary(rng, n_classes=20):
+    def pq():
+        return {k: float(rng.rand()) for k in ("pq_dagger", "pq", "sq", "rq")}
+
+    ssc = {k: float(rng.rand()) for k in (
+        "iou_ssc_mean", "iou", "precision", "recall", "nonempty_ece", "empty_ece",
+        "nonempty_nll", "empty_nll")}
+    unc = {k: float(rng.rand()) for k in ("ins_ece", "ins_nll", "ins_brier", "ins_fpr95")}
+    per_class = {int(c): pq() for c in rng.choice(n_classes + 2, 6, replace=False)}
+    return {"pq_all": pq(), "pq_things": pq(), "pq_stuff": pq(), "per_class": per_class,
+            "ssc": ssc, "uncertainty": unc}
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_tables_identical(S, capsys):
+    """``print_all`` prints and returns the same string in both packages on
+    a seeded summary of every output (per-class rows include an unknown
+    class id, named by its number)."""
+    ref = importlib.import_module("pasco_tpu.metrics.tables")
+    port = importlib.import_module("pasco_torch.metrics.tables")
+    names = _pkg("pasco_torch").params.CLASS_NAMES
+    rng = np.random.RandomState(S)
+    summaries = [_seeded_summary(rng) for _ in range(S + 1)]
+    if S == 3:
+        del summaries[0]["uncertainty"]["ins_brier"]       # optional columns
+    got = port.print_all(summaries, S, names, inference_time=0.1234, ensemble_time=0.5)
+    out_port = capsys.readouterr().out
+    want = ref.print_all(summaries, S, names, inference_time=0.1234, ensemble_time=0.5)
+    assert got == want and out_port == capsys.readouterr().out
+    assert "ensemble" in got and "per-class PQ" in got
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_convert_torch_identical(S):
+    """The port's copy of the reference-checkpoint converter gives the same
+    parameter and statistics trees as the original on a seeded state dict
+    (flagship widths), and the spec and the permutations agree."""
+    ref = importlib.import_module("pasco_tpu.training.convert_torch")
+    port = importlib.import_module("pasco_torch.training.convert_torch")
+    assert_same(ref.reference_state_dict_spec(S), port.reference_state_dict_spec(S))
+    for k in (1, 2, 3):
+        assert_same(ref.me_kernel_permutation(k), port.me_kernel_permutation(k))
+    sd_ref = ref.synthetic_reference_state_dict(np.random.RandomState(S), n_infers=S)
+    sd = port.synthetic_reference_state_dict(np.random.RandomState(S), n_infers=S)
+    assert_same(sd_ref, sd)
+    assert_same(ref.convert_reference_checkpoint(sd_ref, S),
+                port.convert_reference_checkpoint(sd, S))
+
+
+def test_visualization_ply_identical(tmp_path):
+    """The PLY files of both packages' exports are byte-identical, and so
+    is the median filter."""
+    ref = importlib.import_module("pasco_tpu.utils.visualization")
+    port = importlib.import_module("pasco_torch.utils.visualization")
+    rng = np.random.RandomState(0)
+    sem = rng.randint(0, 20, (12, 10, 6)).astype(np.uint8)
+    sem[rng.rand(*sem.shape) < 0.1] = 255
+    pan = rng.randint(0, 5, sem.shape).astype(np.int32)
+    segs = [{"id": i, "category_id": int(rng.randint(1, 20)), "isthing": bool(i % 2)}
+            for i in range(1, 5)]
+    conf = rng.rand(*sem.shape).astype(np.float32)
+    for tag, mod in (("ref", ref), ("port", port)):
+        d = tmp_path / tag
+        mod.export_semantic_ply(str(d / "sem.ply"), sem)
+        mod.export_panoptic_ply(str(d / "pan.ply"), pan, segs)
+        mod.export_uncertainty_ply(str(d / "unc.ply"), conf, sem)
+    for f in ("sem.ply", "pan.ply", "unc.ply"):
+        a, b = (tmp_path / "ref" / f).read_bytes(), (tmp_path / "port" / f).read_bytes()
+        assert a == b and a.count(b"\n") > 100, f
+    assert_same(ref.median_filter_3d(sem), port.median_filter_3d(sem))

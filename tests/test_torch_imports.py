@@ -1,6 +1,8 @@
 """The port imports torch and never JAX, and nothing of the JAX package:
-every ``pasco_torch`` module, ``chip_smoke.py`` and the scripts in
-``scripts_torch/`` import in a fresh interpreter with
+every ``pasco_torch`` module (the dispatch, evaluation, checkpoint,
+converter, tables, timing, visualization and Robo3D modules named),
+``chip_smoke.py`` and the scripts in ``scripts_torch/`` (the bench and the
+three evaluation CLIs named) import in a fresh interpreter with
 no ``jax``, ``jaxlib``, ``flax`` or ``pasco_tpu`` module in
 ``sys.modules`` afterwards."""
 
@@ -26,6 +28,13 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 30, names
 assert "scripts_torch/profile_forward.py" in scripts, scripts
+for name in ("pasco_torch.inference.dispatch", "pasco_torch.inference.evaluate",
+             "pasco_torch.utils.timing", "pasco_torch.utils.visualization",
+             "pasco_torch.metrics.tables", "pasco_torch.training.convert_torch",
+             "pasco_torch.training.checkpoint", "pasco_torch.data.semantic_kitti.robo3d"):
+    assert name in names, name
+for name in ("bench", "eval", "eval_robo3d", "save_outputs_panoptic"):
+    assert f"scripts_torch/{name}.py" in scripts, name
 """
 
 
