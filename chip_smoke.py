@@ -64,26 +64,32 @@
    against plain time for the forward and for dx;
 7. training, narrow whole step: one train step at
    ``flagship_narrow_config(n_infers=1)`` (full widths, small box; caps
-   that do not bind, no point dropout) with the kernels on the card and
-   with the plain versions on the CPU, from the same weights and inputs:
-   loss terms and per-parameter gradients within the bounds stated at
-   :func:`narrow_step_check`;
-8. training, flagship: ``PaSCoConfig()`` on the train box with seeded
-   random init, one warm-up and 3 timed steps through
-   ``pasco_torch.training.loop.train`` on synthetic scenes with targets;
-   prints s/step, device ms/step, peak device memory, ``total_loss`` and
-   ``grad_norm`` per step and the launches per step, and requires finite
-   losses, ``grad_norm > 0``, running statistics that moved, and per step
-   two ``masked_conv3`` launches (remat reruns the forward) and one
-   ``conv3_dx`` launch for every residual-block and refiner conv;
-9. training, MIMO: the same at n_infers=3 on a distinct scan per subnet:
-   one sem-only step (``is_predict_panop=False``), one warm-up and 2
-   timed panoptic steps.
+   that do not bind, no point dropout, every spatial dropout at 0.2) with
+   the kernels on the card and with the plain versions on the CPU, from
+   the same weights, inputs and keep vectors: loss terms and
+   per-parameter gradients within the bounds stated at
+   :func:`narrow_step_check` (the card tests run it at zero rates too);
+8. the trainer (``pasco_torch.training.loop.train``) at ``PaSCoConfig()``:
+   n_infers 1 on 4 synthetic scenes with 1 validation scene, 2 epochs,
+   ``accum_steps=2``, 3 worker processes, then a restore checked bit for
+   bit and a resumed run in the same directory (:func:`trainer_phase`: s
+   per optimizer step, ms between CUDA events per microbatch, the idle
+   share between steps over the second epoch, validation s per scene,
+   checkpoint size and save time); n_infers 3, 2 epochs of 2
+   scenes, the first sem-only (:func:`trainer_mimo_phase`); each with
+   finite losses, moved running statistics and the training conv's
+   launches per microbatch;
+9. MC dropout at the flagship widths with ``--net_3d_dropout 0.2`` and
+   transformer dropout 0.2 (:func:`mc_dropout_phase`, after step 4), and
+   the CLIs: ``scripts_torch/make_bench_ckpt.py --steps 2`` with one
+   forward on its npz through ``scripts_torch/bench.py``'s loader, while
+   ``scripts_torch/bench_train_step.py --steps 2`` runs in a subprocess
+   (:func:`cli_phase`).
 
 Prints each phase's wall time, the whole run's, and a JSON line with the
 kernels' numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
 ``bound_by``, ``device_ms`` for rows 4-5 and 8; launches from the MIMO
-forward, the MIMO train steps and the two entry-point phases; rows 1-5
+forward, the n_infers 3 trainer and the two entry-point phases; rows 1-5
 again per smaller box, named by box, with the launches at that box in the
 n_infers=1 bench run), then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
@@ -117,9 +123,7 @@ PEAK_BF16, PEAK_TF32, PEAK_F32, HBM_BYTES_S = 989e12, 495e12, 67e12, 3.35e12
 N_SCANS = 3
 BENCH_SCANS = 6            # bench.py's scans (its BENCH_SCANS default)
 LADDER = (256, 288, 320)   # the candidate boxes below the flagship's 352
-N_TRAIN_STEPS = 3
 MIMO_S = 3                 # the reference's MIMO headline config (bench.py:54)
-N_MIMO_TRAIN_STEPS = 2
 # residual-block 3^3 convs per forward: 4 encoder + 3 decoder stages x
 # 3 blocks x 2 convs
 RES_CONVS = 42
@@ -881,31 +885,6 @@ def forward_phase(cfg, scans, net, label="forward"):
     return launches
 
 
-def train_scenes(cfg, n, seed=0):
-    """Synthetic training scenes with targets, collated at the train box:
-    a distinct scan per subnet, as the reference's training split draws
-    them (``pasco_tpu/data/semantic_kitti/dataset.py:464-489``)."""
-    from pasco_torch.data.semantic_kitti.collate import collate
-    from pasco_torch.data.semantic_kitti.dataset import process_scene
-    from pasco_torch.data.synthetic import make_scene
-    from pasco_torch.training.loop import train_config
-
-    tcfg = train_config(cfg)
-    rng = np.random.RandomState(seed)
-    out = []
-    for _ in range(n):
-        views = []
-        for _ in range(cfg.model.n_infers):
-            scene = make_scene(
-                rng, scene_size=cfg.scene.scene_size,
-                n_points=min(cfg.capacity.num_points, 120000),
-                point_feat_dim=cfg.model.in_channels - 6,
-            )
-            views.append(process_scene(scene, None, rng))
-        out.append(collate(views, tcfg, rng=rng))
-    return out
-
-
 def train_conv_phase(cfg, col, gen, dev):
     """Row 6 of the kernel table at train shapes: ``MaskedConv3Fn`` (kernel
     forward and dx, plain dw and db) against autograd of the plain version
@@ -984,7 +963,9 @@ class DecisionPins:
     ``top_class``), an attention-mask entry (a mask logit against 0,
     ``downscale_attn_allowed``) and a query-target assignment
     (``match_all``) each flip at a near-tie, which the summation order
-    decides, and a flip moves every gradient downstream of it.  The first
+    decides, and a flip moves every gradient downstream of it; a spatial
+    dropout's keep vector (``SpatialDropout.draw``) comes from the run's
+    own generator, which differs between the card and the CPU.  The first
     run under :meth:`run` records each decision, call by call; every later
     run uses the recorded ones in place of its own."""
 
@@ -998,7 +979,8 @@ class DecisionPins:
 
         sites = ((dense_unet.DenseDecoderStage, "_finish", 2),
                  (transformer, "downscale_attn_allowed", None),
-                 (criterion, "match_all", None))
+                 (criterion, "match_all", None),
+                 (dense_unet.SpatialDropout, "draw", None))
         record = not self.calls
         saved, used = [], {}
         for owner, name, idx in sites:
@@ -1012,7 +994,7 @@ class DecisionPins:
             for owner, name, fn in saved:
                 setattr(owner, name, fn)
         short = {k: (used[k][0], len(v)) for k, v in self.calls.items()
-                 if not v or not record and used[k][0] != len(v)}
+                 if not v and k != "draw" or not record and used[k][0] != len(v)}
         if short:
             raise AssertionError(f"pinned decisions (used, recorded) do not match: {short}")
 
@@ -1037,13 +1019,16 @@ class DecisionPins:
         return pinned
 
 
-def narrow_step_check(dev, n_infers=1, seed=1):
+def narrow_step_check(dev, n_infers=1, seed=1, dropout=0.0):
     """One train step at ``flagship_narrow_config(n_infers)`` with the
     kernels on the card (bf16) against the same step with the plain
     versions on the CPU, in bf16 and in f32, from the same weights and
     inputs (the scene from data ``seed``).  The decoder caps are raised to
     the box's cell count, so the Gumbel cap is a no-op; the config has no
-    point dropout; the BN biases are drawn non-zero (at a zero bias, a
+    point dropout; ``dropout > 0`` sets every spatial dropout to that rate
+    (the three encoder and decoder stages of ``--net_3d_dropout``'s
+    schedule, and the bottleneck's), whose keep vectors the CPU steps take
+    from the card step (:class:`DecisionPins`); the BN biases are drawn non-zero (at a zero bias, a
     leaky/relu between two BNs makes the first one's scale gradient
     structurally zero).  The two CPU steps take the card step's discrete
     decisions (:class:`DecisionPins`: kept cells, attention masks,
@@ -1064,6 +1049,7 @@ def narrow_step_check(dev, n_infers=1, seed=1):
     from pasco_torch.models.norm import BatchNorm
     from pasco_torch.models.unet import build_net, scene_to_model_input
     from pasco_torch.training import step as tstep
+    from pasco_torch.training.loop import synthetic_train_scenes
 
     cfg = flagship_narrow_config(n_infers=n_infers)
     ex, ey, ez = cfg.scene.box_extent
@@ -1071,6 +1057,10 @@ def narrow_step_check(dev, n_infers=1, seed=1):
     cfg = cfg.replace(
         capacity=dataclasses.replace(cfg.capacity, dec_s4=n // 64, dec_s2=n // 8, dec_s1=n),
         optim=OptimConfig(lr=1e-3, warmup_steps=0))
+    if dropout:
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, encoder_dropouts=(0.0,) * 3 + (dropout,) * 3,
+            decoder_dropouts=(dropout,) * 3 + (0.0,) * 2, dense3d_dropout=dropout))
     freqs = {s: np.ones(cfg.model.n_classes) for s in (1, 2, 4)}
     lw = tstep.labelweights_for(cfg, freqs)
     cw = tstep.class_weight_vector(cfg.model.n_classes, cfg.loss.no_object_weight)
@@ -1081,7 +1071,7 @@ def narrow_step_check(dev, n_infers=1, seed=1):
         for m in init.modules():
             if isinstance(m, BatchNorm):
                 m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
-    col = train_scenes(cfg, 1, seed=seed)[0]
+    col = synthetic_train_scenes(cfg, 1, seed=seed)[0]
     runs, pins = {}, DecisionPins()
     for name, dtype, d in (("cuda", "bfloat16", dev), ("cpu", "bfloat16", torch.device("cpu")),
                            ("cpu f32", "float32", torch.device("cpu"))):
@@ -1112,7 +1102,8 @@ def narrow_step_check(dev, n_infers=1, seed=1):
     zero = max(max(grads[k].abs().max().item(), v.abs().max().item())
                for k, v in ref_g.items() if STRUCTURALLY_ZERO.search(k))
     ratio = max(err[k] / max(err_plain[k], 1e-12) for k in err)
-    print(f"narrow step (n_infers={n_infers}, seed {seed}): total_loss {logs['total_loss']:.6g} (cuda bf16) vs "
+    print(f"narrow step (n_infers={n_infers}, seed {seed}, spatial dropout {dropout}, "
+          f"{len(pins.calls.get('draw', []))} keep vectors pinned): total_loss {logs['total_loss']:.6g} (cuda bf16) vs "
           f"{ref_logs['total_loss']:.6g} (cpu plain bf16) vs "
           f"{runs['cpu f32'][0]['total_loss']:.6g} (cpu plain f32); worst loss term at "
           f"{worst:.3f} of its bound; gradient error against f32, median over "
@@ -1120,6 +1111,8 @@ def narrow_step_check(dev, n_infers=1, seed=1):
           f"ratio {ratio:.3f}; structurally zero max {zero:.3g} vs bound "
           f"{1e-2 * top:.3g}; step {t_gpu:.2f} s (cuda) / {t_cpu:.2f} s (cpu bf16)",
           flush=True)
+    if dropout and not pins.calls.get("draw"):
+        raise AssertionError("narrow step: no spatial dropout drew a keep vector")
     if not worst <= 1.0:
         raise AssertionError(f"narrow step: loss terms differ ({worst:.3f} of the bound)")
     if over or not med <= 1.2 * med_plain or not zero <= 1e-2 * top:
@@ -1131,7 +1124,7 @@ def _check_steps(label, recs):
     for r in recs:
         print(f"{label} step {r['step']}: is_predict_panop {r['is_predict_panop']}, "
               f"total_loss {r['total_loss']:.6g}, grad_norm {r['grad_norm']:.6g}, "
-              f"{r['step_s']:.4f} s, device {r['device_ms']:.2f} ms", flush=True)
+              f"{r['step_s']:.4f} s, {r['event_ms']:.2f} ms between events", flush=True)
     if not all(np.isfinite(r["total_loss"]) and np.isfinite(r["grad_norm"])
                and r["grad_norm"] > 0 for r in recs):
         raise AssertionError(f"{label}: non-finite loss or gradient: {recs}")
@@ -1146,64 +1139,266 @@ def _check_conv_launches(label, launches, convs):
         raise AssertionError(f"{label}: conv kernels launched too rarely per step: {short}")
 
 
-def train_phase(cfg, cols, dev, n_sem=0, label="train"):
-    """The flagship train step through the trainer: ``n_sem`` sem-only
-    steps (``is_predict_panop=False``), one warm-up step, then the timed
-    ones on the remaining scenes.  Returns the launches of the timed
-    steps."""
-    from pasco_torch import kernels
+def _synthetic_dataset(cfg, n, **kw):
+    """A ``SyntheticKittiDataset`` of ``n`` flagship-sized scenes (120000
+    points) for ``cfg``."""
+    from pasco_torch.data.synthetic import SyntheticKittiDataset
+
+    return SyntheticKittiDataset(
+        n_scenes=n, n_subnets=cfg.model.n_infers, scene_size=cfg.scene.scene_size,
+        n_points=min(cfg.capacity.num_points, 120000),
+        point_feat_dim=cfg.model.in_channels - 6, **kw)
+
+
+def _check_trained(label, state, launches, n_micro):
+    """The trainer's run: finite losses and non-zero gradients at every
+    optimizer step, every running statistic moved from its init (mean 0,
+    var 1), and per microbatch two ``masked_conv3`` launches (remat reruns
+    the forward) and one ``conv3_dx`` launch for every residual-block conv
+    and, in a panoptic microbatch, every refiner conv."""
     from pasco_torch.models.norm import BatchNorm
+
+    _check_steps(label, state.history)
+    still = [n for n, m in state.net.named_modules() if isinstance(m, BatchNorm)
+             and ((m.mean == 0).any() or (m.var == 1).any())]
+    if still:
+        raise AssertionError(f"{label}: running statistics did not move: {still[:5]}")
+    S = state.net.cfg.model.n_infers
+    convs = sum((RES_CONVS + 6 * S * r["is_predict_panop"]) * n_micro for r in state.history)
+    _check_conv_launches(label, launches, convs)
+
+
+def trainer_phase(dev):
+    """``pasco_torch.training.loop.train`` at ``PaSCoConfig()`` (n_infers 1):
+    4 synthetic scenes (120000 points) and 1 validation scene, 2 epochs,
+    ``accum_steps=2``, 3 worker processes, in a temporary ``log_dir``.
+    Requires 4 optimizer steps, the checks of :func:`_check_trained`, the
+    epoch and ``val/pq_dagger_all`` lines in ``metrics.jsonl`` and
+    checkpoints at both epochs.  Then the latest checkpoint, restored as
+    ``train()`` restores it (``CheckpointManager.restore``) into the final
+    state zeroed, must give back the net (parameters and running
+    statistics), both AdamW moments, the update count and the step bit for
+    bit; and a second ``train()`` in that directory (one epoch of 2
+    scenes, collated in this process) must resume there and go on from
+    step 4 to 5.  Prints s per optimizer step (host clock), the ms between
+    CUDA events around each microbatch (host work inside the step that the
+    card waits on, the matching, counts: not the card's busy time), the
+    idle share between steps over the second epoch (1 - the epoch's summed
+    event ms / its wall time: the time no step ran), validation s per
+    scene, and the checkpoint's size and the time of one more save of the
+    same state.  Returns the launches of the first run."""
+    from pasco_torch import kernels
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.training.checkpoint import CheckpointManager
+    from pasco_torch.training.loop import read_metrics, train
+
+    cfg = PaSCoConfig()
+    label = "trainer (n_infers=1)"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as log_dir:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state = train(cfg, _synthetic_dataset(cfg, 4),
+                      _synthetic_dataset(cfg, 1, split="val", seed=50), n_epochs=2,
+                      log_dir=log_dir, accum_steps=2, num_workers=3, device=dev)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if state.step != 4 or len(state.history) != 4:
+            raise AssertionError(f"{label}: {state.step} steps, {len(state.history)} records")
+        _check_trained(label, state, launches, 2)
+        metrics = read_metrics(log_dir)
+        epochs = [r for r in metrics if "epoch" in r]
+        val = [r for r in metrics if "val/pq_dagger_all" in r]
+        ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
+        if len(epochs) != 2 or len(val) != 2 or ckpt.all_steps() != [2, 4]:
+            raise AssertionError(f"{label}: metrics {metrics}, checkpoints {ckpt.all_steps()}")
+        second = [r for r in state.history if r["epoch"] == 1]
+        idle = 1 - sum(r["event_ms"] for r in second) / 1e3 / epochs[1]["epoch_time"]
+        micro = [ms for r in state.history for ms in r["micro_event_ms"]]
+        size = os.path.getsize(os.path.join(ckpt.directory, "ckpt_4.pt")) / 1e9
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as other:
+            t1 = time.perf_counter()
+            CheckpointManager(other).save(4, state, {"monitor": val[-1]["val/pq_dagger_all"]})
+            save_s = time.perf_counter() - t1
+        print(f"{label}: {wall:.1f} s for 2 epochs; s per optimizer step "
+              f"{[round(r['step_s'], 4) for r in state.history]} (median "
+              f"{statistics.median(r['step_s'] for r in state.history):.4f}), "
+              f"{statistics.mean(micro):.2f} ms between events per microbatch "
+              f"({[round(m, 2) for m in micro]}), second epoch {epochs[1]['epoch_time']:.3f} s, "
+              f"idle share between steps {idle:.4f}; "
+              f"validation {[round(r['val/s_per_scene'], 3) for r in val]} s per scene, "
+              f"pq_dagger {[r['val/pq_dagger_all'] for r in val]}; checkpoint {size:.3f} GB, "
+              f"save {save_s:.2f} s; launches {launches}", flush=True)
+
+        saved = {k: v.clone() for k, v in state.net.state_dict().items()}
+        moments = {n: {k: v.clone() for k, v in getattr(state.opt, n).items()}
+                   for n in ("mu", "nu")}
+        count = state.opt.count
+        for v in [*state.net.state_dict().values(), *state.opt.mu.values(),
+                  *state.opt.nu.values()]:
+            v.zero_()
+        state.opt.count = state.step = 0
+        ckpt.restore(state)
+        diff = [k for k, v in state.net.state_dict().items() if not torch.equal(v, saved[k])]
+        diff += [f"opt.{n}.{k}" for n, m in moments.items() for k, v in m.items()
+                 if not torch.equal(getattr(state.opt, n)[k], v)]
+        if diff or state.step != 4 or state.opt.count != count:
+            raise AssertionError(f"{label}: restore differs: step {state.step}, count "
+                                 f"{state.opt.count}, {diff[:5]}")
+        n_tensors = len(saved)
+        del state, saved, moments
+        more = train(cfg, _synthetic_dataset(cfg, 4), n_epochs=1, log_dir=log_dir,
+                     limit_train_batches=2, accum_steps=2, num_workers=0, device=dev)
+        if [r["step"] for r in more.history] != [5] or ckpt.latest_step() != 5:
+            raise AssertionError(f"{label}: the resumed run did not go on from step 4: "
+                                 f"{more.history}, checkpoints {ckpt.all_steps()}")
+        print(f"{label}: restored step 4 bit-identical ({n_tensors} tensors, both AdamW "
+              f"moments, count {count}); the resumed run took step 5, "
+              f"total_loss {more.history[0]['total_loss']:.6g}", flush=True)
+    return launches
+
+
+def trainer_mimo_phase(dev):
+    """``train`` at ``PaSCoConfig()`` with n_infers 3: 2 epochs of 2
+    synthetic scenes (3 augmented views each), no validation; the first
+    epoch is sem-only (``{4: 2, 3: 1}``) and the second panoptic.  The
+    checks of :func:`_check_trained`; prints s/step, the ms between CUDA
+    events per step and peak memory.  Returns the launches."""
+    from pasco_torch import kernels
+    from pasco_torch.core.config import PaSCoConfig
     from pasco_torch.training.loop import train
 
-    S = cfg.model.n_infers
-    state = None
-    if n_sem:
+    cfg = PaSCoConfig()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=MIMO_S))
+    label = f"trainer (n_infers={MIMO_S})"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train3_") as log_dir:
+        torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
-        state = train(cfg, cols[:n_sem], device=dev, log=None, pretrain_sem_steps=n_sem)
-        launches = {k: v / n_sem for k, v in kernels.LAUNCHES.items()}
-        recs = state.history
-        _check_steps(f"{label} sem-only", recs)
-        print(f"{label} sem-only: launches per step {launches}", flush=True)
-        if any(r["is_predict_panop"] for r in recs):
-            raise AssertionError(f"{label}: the pretraining steps predicted panoptic")
-        _check_conv_launches(f"{label} sem-only", launches, RES_CONVS)
-    n_timed = len(cols) - n_sem - 1
-    state = train(cfg, cols[n_sem:n_sem + 1], device=dev, log=None, state=state,
-                  pretrain_sem_steps=n_sem)                              # warm-up
-    stats0 = {k: v.clone() for k, v in state.net.state_dict().items()
-              if k.endswith((".mean", ".var"))}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    state = train(cfg, cols[n_sem + 1:], state=state, log=None, pretrain_sem_steps=n_sem)
-    wall = time.perf_counter() - t0
-    launches = {k: v / n_timed for k, v in kernels.LAUNCHES.items()}
+        state = train(cfg, _synthetic_dataset(cfg, 2, data_aug=True), n_epochs=2,
+                      log_dir=log_dir, num_workers=3, device=dev)
+        launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    recs = state.history[n_sem + 1:]
-    _check_steps(label, recs)
-    print(f"{label} (n_infers={S}): {wall / n_timed:.4f} s/step (host clock), device "
-          f"{statistics.mean(r['device_ms'] for r in recs):.2f} ms/step, peak "
-          f"{peak:.3f} GB, launches per step {launches}", flush=True)
-    if not all(r["is_predict_panop"] for r in recs):
-        raise AssertionError(f"{label}: a timed step skipped the panoptic losses")
-    n_bn = sum(isinstance(m, BatchNorm) for m in state.net.modules())
-    still = [k for k, v in stats0.items() if torch.equal(v, state.net.state_dict()[k])]
-    if len(stats0) != 2 * n_bn or still:
-        raise AssertionError(f"{label}: running statistics did not move: {still[:5]}")
-    _check_conv_launches(label, launches, RES_CONVS + 6 * S)
-    return dict(kernels.LAUNCHES)
+    panop = [r["is_predict_panop"] for r in state.history]
+    if panop != [False, False, True, True]:
+        raise AssertionError(f"{label}: is_predict_panop per step {panop}")
+    _check_trained(label, state, launches, 1)
+    print(f"{label}: s/step {[round(r['step_s'], 4) for r in state.history]}, ms between "
+          f"events {[round(r['event_ms'], 2) for r in state.history]} (sem-only, sem-only, panoptic, "
+          f"panoptic), peak {peak:.3f} GB, launches {launches}", flush=True)
+    return launches
 
 
-def _bench_module():
-    """``scripts_torch/bench.py`` (its measuring function and helpers)."""
+def _script(name):
+    """``scripts_torch/<name>.py`` as a module."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts_torch", "bench.py")
-    spec = importlib.util.spec_from_file_location("scripts_torch_bench", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts_torch",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"scripts_torch_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def mc_dropout_phase(dev, inp):
+    """MC dropout at ``PaSCoConfig()`` widths with ``scripts_torch/
+    train.py``'s ``--net_3d_dropout 0.2`` schedule and transformer dropout
+    0.2 (point dropout 0.05): two ``mc_eval_step`` forwards with different
+    generators differ, each passes :func:`check_output` and launches rows
+    1-5 as often as :func:`forward_launch_floor` says; a plain eval forward
+    before and after is bit-identical, and the running statistics are
+    untouched."""
+    from pasco_torch import kernels
+    from pasco_torch.models.unet import build_net
+    from pasco_torch.training.step import eval_step, mc_eval_step
+
+    cli = _script("train")
+    cfg = cli.build_config(cli.parse_args(["--dataset_root", "-", "--net_3d_dropout", "0.2",
+                                           "--transformer_dropout", "0.2"]))
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    drops = [n for n, _ in net.named_modules() if n.endswith("drop") or "_drop_" in n]
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+
+    def flat(out):
+        return [t for t in (out.predictor.query_logits, out.predictor.voxel_logits,
+                            *out.sem_logits.values(),
+                            *(g.feats for g in out.panop_grids.values()),
+                            *(g.coords for g in out.panop_grids.values()))]
+
+    plain = flat(eval_step(net, inp))
+    floor = forward_launch_floor(1)
+    samples = []
+    for seed in (1, 2):
+        kernels.reset_launches()
+        out = mc_eval_step(net, inp, torch.Generator(device=dev).manual_seed(seed))
+        launches = dict(kernels.LAUNCHES)
+        check_output(cfg, out)
+        short = {k: launches[k] for k in floor if launches[k] < floor[k]}
+        if short:
+            raise AssertionError(f"MC dropout: kernels launched too rarely: {short}")
+        samples.append(flat(out))
+    again = flat(eval_step(net, inp))
+    torch.cuda.synchronize()
+    q = [s[0].float() for s in samples]
+    spread = (q[0] - q[1]).abs().max().item()
+    if not spread > 0:
+        raise AssertionError("MC dropout: two samples with different generators are equal")
+    if not all(torch.equal(a, b) for a, b in zip(plain, again)):
+        raise AssertionError("MC dropout: the eval forward changed")
+    moved = [k for k, v in net.state_dict().items() if not torch.equal(v, before[k])]
+    if moved:
+        raise AssertionError(f"MC dropout: state moved: {moved[:5]}")
+    print(f"MC dropout (dropout modules {drops}): two samples differ (query logits max|d| "
+          f"{spread:.4g}), launches per forward {launches} (floors {floor}); eval forward "
+          f"before and after bit-identical, state untouched", flush=True)
+
+
+def cli_phase(dev, inp):
+    """``scripts_torch/bench_train_step.py --steps 2`` in a subprocess,
+    whose last line must be its JSON, while this process runs
+    ``scripts_torch/make_bench_ckpt.py --steps 2`` to a temporary npz,
+    which ``scripts_torch/bench.py``'s loader reads with ``strict=True``
+    for one finite forward.  The two share the card and the host, so
+    neither's times here are its own."""
+    from pasco_torch.core.config import PaSCoConfig
+
+    bench, cfg = _script("bench"), PaSCoConfig()
+    torch.cuda.empty_cache()           # the subprocess's step needs ~20 GB of the card
+    t0 = time.perf_counter()
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]    # no pipe to fill unread
+    proc = subprocess.Popen([sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts_torch", "bench_train_step.py"), "--steps", "2"],
+        stdout=logs[0], stderr=logs[1], text=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            out = os.path.join(tmp, "bench_ckpt.npz")
+            _script("make_bench_ckpt").main(["--steps", "2", "--out", out])
+            t_make = time.perf_counter() - t0
+            fwd = bench.build_forward(cfg, dev, trained=out)
+            with torch.no_grad():
+                res = check_output(cfg, fwd(inp))
+        print(f"make_bench_ckpt --steps 2: {t_make:.1f} s; BENCH_TRAINED_CKPT forward: kept "
+              f"{res[0]}", flush=True)
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    stdout, stderr = texts
+    lines = stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench_train_step.py exit {proc.returncode}: {stderr[-2000:]}")
+    res = json.loads(lines[-1])
+    if res.get("metric") != "train_sec_per_step" or not res["value"] > 0:
+        raise AssertionError(f"bench_train_step.py: last line {lines[-1]}")
+    print("\n".join(f"  bench_train_step.py: {line}" for line in lines), flush=True)
+    print(f"bench_train_step.py --steps 2: {time.perf_counter() - t0:.1f} s from its start",
+          flush=True)
 
 
 def with_box(cfg, side):
@@ -1230,7 +1425,7 @@ def host_scenes(kind, n_infers, n, seed, nice=0, out=None):
     """Collated scenes of ``PaSCoConfig()`` at ``n_infers``, drawn on the
     host (NumPy only, so a worker process draws them while the card works):
     ``"eval"`` the scans of :func:`make_scans`, ``"train"`` those of
-    :func:`train_scenes`, ``"unaugmented"`` :func:`unaugmented_scene`.
+    ``synthetic_train_scenes``, ``"unaugmented"`` :func:`unaugmented_scene`.
     ``nice`` lowers the drawing process's priority, so that it takes the
     cores the main process leaves idle.  With ``out``, the scenes are
     pickled to that file and the path is returned: the process that waits
@@ -1239,6 +1434,7 @@ def host_scenes(kind, n_infers, n, seed, nice=0, out=None):
     import pickle
 
     from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.training.loop import synthetic_train_scenes
 
     if nice:
         os.nice(nice)
@@ -1248,7 +1444,7 @@ def host_scenes(kind, n_infers, n, seed, nice=0, out=None):
         rng = np.random.RandomState(seed)
         cols = [eval_scene(cfg, rng) for _ in range(n)]
     elif kind == "train":
-        cols = train_scenes(cfg, n, seed)
+        cols = synthetic_train_scenes(cfg, n, seed)
     else:
         cols = [unaugmented_scene(cfg, seed)]
     if out is None:
@@ -1347,7 +1543,7 @@ def bench_phase(cfg, scans, net, label):
     (results by mode, launches per box, forwards per box)."""
     from pasco_torch import kernels
 
-    bench = _bench_module()
+    bench = _script("bench")
     dev = scans[0][1].point_feats.device
     fwd = counting_forward(net)
     inps = [inp for _, inp in scans]
@@ -1477,10 +1673,7 @@ def eval_cli_phase():
         "fake_val_scan", os.path.join(here, "tests", "test_eval_script.py"))
     fake = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fake)
-    spec = importlib.util.spec_from_file_location(
-        "scripts_torch_eval", os.path.join(here, "scripts_torch", "eval.py"))
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
+    cli = _script("eval")
     m = eval_config("flagship_narrow", 1).model
     with tempfile.TemporaryDirectory() as tmp:
         fake._write_fake_val_scan(tmp)
@@ -1546,7 +1739,7 @@ def run_phases(jobs, dev, lap):
     scenes of ``jobs`` (futures of :func:`host_scenes`).  Returns the
     kernel rows at 352, the rows of the smaller boxes, the launches by box
     of the n_infers=1 bench run, those of the MIMO forward, the training
-    conv's row and the launches of the MIMO train steps."""
+    conv's row and the launches of the n_infers 3 trainer."""
     from pasco_torch.core.config import PaSCoConfig
     from pasco_torch.models.unet import build_net, scene_to_model_input
 
@@ -1580,6 +1773,8 @@ def run_phases(jobs, dev, lap):
     rows.append(featurizer_phase(cfg, scans[0][1], net))
     scene_inference_phase(cfg, net, scans[0])
     lap("forward, n_infers 1")
+    mc_dropout_phase(dev, scans[0][1])
+    lap("MC dropout")
 
     # The box ladder (this slice): rows 1-5 at every smaller box, the
     # extraction alternating between boxes, the bench protocol through
@@ -1592,6 +1787,7 @@ def run_phases(jobs, dev, lap):
     _, per_box, _ = bench_phase(cfg, scans, net, "bench n_infers=1")
     two_boxes_check(cfg, net, by_box[288], box_of(cfg, by_box[288][0]))
     lap("bench protocol, n_infers 1")
+    first = scans[0][1]
     del net, scans, box_scans, by_box     # the MIMO forward's peak holds only its own state
     torch.cuda.empty_cache()
 
@@ -1611,14 +1807,15 @@ def run_phases(jobs, dev, lap):
     eval_cli_phase()
     lap("eval CLI")
 
-    train_cols = cols_of("train")
-    dx_row = train_conv_phase(cfg, train_cols[0], gen, dev)
-    narrow_step_check(dev)
+    dx_row = train_conv_phase(cfg, cols_of("train")[0], gen, dev)
+    narrow_step_check(dev, dropout=0.2)
     lap("training conv and narrow step")
-    train_phase(cfg, train_cols, dev)
-    del train_cols
-    train_launches = train_phase(cfg3, cols_of("train3"), dev, n_sem=1, label="MIMO train")
-    lap("training")
+    trainer_phase(dev)
+    lap("trainer, n_infers 1")
+    train_launches = trainer_mimo_phase(dev)
+    lap("trainer, n_infers 3")
+    cli_phase(dev, first)
+    lap("CLIs")
     return rows, box_rows, per_box, launches, dx_row, train_launches
 
 
@@ -1648,8 +1845,7 @@ def main():
                 for name, args in (
             ("scans3", ("eval", MIMO_S, BENCH_SCANS, 0)),
             ("box256", ("unaugmented", 1, 1, 3)),
-            ("train", ("train", 1, 1 + N_TRAIN_STEPS, 0)),
-            ("train3", ("train", MIMO_S, 2 + N_MIMO_TRAIN_STEPS, 2)))}
+            ("train", ("train", 1, 1, 0)))}
         t0 = time.perf_counter()
         with cf.ThreadPoolExecutor(1) as build_pool:
             build = build_pool.submit(kernels.lib)     # nvcc in subprocesses

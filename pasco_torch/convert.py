@@ -1,4 +1,5 @@
-"""Weight bridge: flax variables -> the port's ``state_dict``.
+"""Weight bridge between flax variables and the port's ``state_dict``, both
+ways (:func:`flax_to_torch`, :func:`torch_to_flax`).
 
 ``flat`` holds the reference's variables flattened to ``params/a/b/c`` and
 ``batch_stats/a/b/c`` keys, the key form of ``bench.py:_load_bench_ckpt``.
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 LAYERNORMS = ("norm", "decoder_norm")
+BATCH_STATS = ("mean", "var")
 
 
 def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -36,4 +38,21 @@ def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         elif coll == "params" and path and path[-1] in LAYERNORMS and leaf == "scale":
             leaf = "weight"
         out[".".join([*path, leaf])] = torch.from_numpy(arr.copy())
+    return out
+
+
+def torch_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`flax_to_torch`: a port ``state_dict`` as f32
+    ``params/...`` / ``batch_stats/...`` arrays, the layout that
+    ``bench.py`` and ``scripts_torch/bench.py`` load (``BENCH_TRAINED_CKPT``)."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().float().cpu().numpy()
+        coll = "batch_stats" if leaf in BATCH_STATS else "params"
+        if leaf == "weight" and path and path[-1] in LAYERNORMS:
+            leaf = "scale"
+        elif leaf == "weight":
+            leaf, arr = "kernel", arr.T
+        out["/".join([coll, *path, leaf])] = np.ascontiguousarray(arr)
     return out

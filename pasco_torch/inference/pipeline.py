@@ -13,7 +13,7 @@ assembly, metrics and ``prepare_mask_targets``
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -141,18 +141,26 @@ class Evaluator:
 
     def add_scene(self, results: Dict[str, object],
                   semantic_label_origin: np.ndarray,   # canonical [X, Y, Z]
-                  instance_label_origin: np.ndarray) -> None:
-        """Score every output of one scene, uncertainty included, against
-        its canonical-frame labels."""
+                  instance_label_origin: np.ndarray,
+                  eval_list: Optional[Sequence[int]] = None,
+                  compute_uncertainty: bool = True) -> None:
+        """Score the outputs ``eval_list`` (every one by default) of one
+        scene against its canonical-frame labels, with the uncertainty
+        statistics unless ``compute_uncertainty`` is False (the trainer's
+        validation scores outputs 0 and S without them,
+        ``pasco_tpu/training/loop.py:332-338``)."""
         cfg = self.cfg
         outputs = results["outputs"]
+        if eval_list is None:
+            eval_list = range(len(outputs))
         gt_labels, gt_mask_id = prepare_mask_targets(
             semantic_label_origin, instance_label_origin, cfg.thing_ids)
         gt_masks = gt_mask_id[None] == np.arange(len(gt_labels))[:, None, None, None]
         gt_panoptic, gt_segments = mask_labels_to_panoptic(
             gt_labels, gt_masks, cfg.thing_ids)
         unknown = semantic_label_origin == 255
-        for i, o in enumerate(outputs):
+        for i in eval_list:
+            o = outputs[i]
             pred_pan = o["panoptic_seg_dense"].copy()
             gt_pan = gt_panoptic.copy()
             pred_pan[unknown] = 0
@@ -165,6 +173,8 @@ class Evaluator:
             sem_prob = o["sem_prob_dense"]
             ssc_pred = sem_prob.argmax(0)
             self.ssc[i].add_batch(ssc_pred, semantic_label_origin)
+            if not compute_uncertainty:
+                continue
             self.ssc[i].add_batch_ece(
                 o["ssc_confidence"], ssc_pred, sem_prob, semantic_label_origin,
                 inference_time=results["inference_time"])

@@ -30,8 +30,18 @@ onto this module.
 At ``S > 1`` the subnets share the backbone: the featurizer scatters each
 point into its subnet's lane block of the ``S * f``-wide ``enc_in`` input,
 the heads emit ``S * K`` logits, and each subnet runs its own refiner on
-its own keep set and its own query set in the transformer.  MC dropout is
-not ported yet (ROADMAP.md, queue 1).
+its own keep set and its own query set in the transformer.
+
+Dropout follows the reference's ``drop_on = train or mc_dropout``
+(``dense_unet.py:1102-1105``): in training mode, and at inference under
+``mc_dropout=True`` (MC dropout: BatchNorm keeps its running statistics
+and the caps stay off), the point dropout, the whole-channel spatial
+dropouts (:class:`SpatialDropout`, after each encoder stage, after the
+bottleneck and before each decoder stage's heads) and the transformer
+dropout are live.  Every random draw is made outside the rematerialised
+regions: ``torch.utils.checkpoint`` restores only the default generators,
+not the explicit ``generator`` threaded through the forward, so a draw
+inside a region would change on recompute.
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ from pasco_torch.core.config import PaSCoConfig
 from pasco_torch.core.sparse import Box, SparseGrid, stack_grids
 from pasco_torch.models.blocks import ConvParams
 from pasco_torch.models.bottleneck import SPCDense3D
-from pasco_torch.models.norm import MC_DROPOUT_NOT_PORTED, BatchNorm, masked_moments
+from pasco_torch.models.norm import BatchNorm, masked_moments
 from pasco_torch.models.transformer import TransformerPredictor
 from pasco_torch.models.unet import ModelInput, ModelOutput
 from pasco_torch.ops.conv import MaskedConv3Fn, conv_tiles, masked_conv3
@@ -75,6 +85,39 @@ def _remat(on: bool, fn, *args):
 def _masked(x, mask):
     return torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
+
+
+class SpatialDropout(nn.Module):
+    """Whole-channel dropout on a dense ``[..., C]`` volume
+    (``DenseSpatialDropout``, ``pasco_tpu/models/dense_unet.py:294-319``):
+    one Bernoulli keep per channel, shared by every cell, ``x / (1 - rate)``
+    where kept and 0 elsewhere.  The port's volumes are unpacked, so every
+    channel is a logical one.  ``name`` is the reference's module path."""
+
+    def __init__(self, rate: float, name: str):
+        super().__init__()
+        self.rate, self.name = rate, name
+
+    def draw(self, c: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
+        """The ``[c]`` keep vector."""
+        return torch.rand(c, generator=generator, device=device) < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        keep = self.draw(x.shape[-1], generator, x.device)
+        return torch.where(keep, x / (1.0 - self.rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _add_dropout(owner: nn.Module, attr: str, rate: float, name: str) -> None:
+    """Register a :class:`SpatialDropout` only for a non-zero rate, so a
+    zero rate adds no module and no draw."""
+    if rate > 0.0:
+        owner.add_module(attr, SpatialDropout(rate, name))
+
+
+def _drop(owner: nn.Module, attr: str, x, generator, live: bool):
+    mod = getattr(owner, attr, None)
+    return mod(x, generator) if live and mod is not None else x
 
 
 class PointMLP(nn.Module):
@@ -176,9 +219,10 @@ class DenseDecoderStage(nn.Module):
     per-subnet semantic heads (``dense_unet.py:698-969``)."""
 
     def __init__(self, ci: int, ch: int, n_infers: int, n_classes: int,
-                 n_res: int, scale: int, remat: bool):
+                 n_res: int, scale: int, remat: bool, dropout: float = 0.0):
         super().__init__()
         self.scale, self.n_res, self.remat = scale, n_res, remat
+        _add_dropout(self, "drop", dropout, f"dec_s{scale}/drop")
         self.up_kernel = nn.Parameter(torch.zeros((8, ci, ch)))
         self.up_bias = nn.Parameter(torch.zeros((ch,)))
         self.up_bn = BatchNorm(ch)
@@ -189,7 +233,8 @@ class DenseDecoderStage(nn.Module):
         self.head_kernel = nn.Parameter(torch.zeros((n_infers, ch, n_classes)))
         self.head_bias = nn.Parameter(torch.zeros((n_infers, n_classes)))
 
-    def forward(self, x, parent_keep, skip, skip_mask, box, gmin, gmax):
+    def forward(self, x, parent_keep, skip, skip_mask, box, gmin, gmax,
+                generator=None, live=False):
         msk_child = upsample2_mask(parent_keep) & bbox_mask(
             box, self.scale, gmin, gmax)
         msk = msk_child | skip_mask
@@ -203,7 +248,7 @@ class DenseDecoderStage(nn.Module):
                 tiles=_tiles(up_tiles, msk),
             )
         x = _res_stack(self, x, msk, _tiles(conv_tiles, msk))
-        return self._finish(x, msk)
+        return self._finish(x, msk, generator, live)
 
     def _preamble_train(self, x, parent_keep, msk_child, skip, box):
         """The unfused train preamble (``dense_unet.py:775-830``): plain
@@ -251,12 +296,15 @@ class DenseDecoderStage(nn.Module):
                  + cc[1][None, None, :, None] * wr[ch + 1] + br)
         return (out + coord).to(x.dtype)
 
-    def _finish(self, x, msk):
-        """Per-subnet sem heads.  The logits are rounded to bf16 and the
-        argmax reads the ROUNDED logits, like the reference
+    def _finish(self, x, msk, generator=None, live=False):
+        """The stage's spatial dropout where ``live`` (``dense_unet.py:
+        876-884``: the returned volume, which the refiners read, is the
+        dropped one), then the per-subnet sem heads.  The logits are
+        rounded to bf16 and the argmax reads the ROUNDED logits, like the reference
         (``dense_unet.py:898-915, 951-968``): extraction sets depend on the
         tie rule.  Returns (x, sem [X,Z,Y,S,K] bf16, top_class [X,Z,Y,S],
         top_prob [X,Z,Y,S] bf16 (training only, else None), msk)."""
+        x = _drop(self, "drop", x, generator, live)
         S, ch, K = self.head_kernel.shape
         X, Z, Y, _ = x.shape
         w = self.head_kernel.to(x.dtype).float().permute(1, 0, 2).reshape(ch, S * K)
@@ -325,11 +373,15 @@ class DensePaSCoNet(nn.Module):
         for si, stride in enumerate((2, 4, 8)):
             self.add_module(f"enc_s{stride}", DenseEncStage(
                 fm[si], fm[si + 1], True, n_res, m.remat))
+            name = f"enc_drop_s{stride}"
+            _add_dropout(self, name, m.encoder_dropouts[-3 + si], name)
         self.bottleneck = SPCDense3D(fm[3])
+        _add_dropout(self, "dense3d_drop", m.dense3d_dropout, "dense3d_drop")
         dec_ch = fm[::-1]
         for i, scale in enumerate((4, 2, 1)):
             self.add_module(f"dec_s{scale}", DenseDecoderStage(
-                dec_ch[i], dec_ch[i + 1], S, m.n_classes, dec_n_res, scale, m.remat))
+                dec_ch[i], dec_ch[i + 1], S, m.n_classes, dec_n_res, scale, m.remat,
+                m.decoder_dropouts[i]))
         for scale, ch in zip((4, 2, 1), dec_ch[1:]):
             self.add_module(f"voxel_feats_s{scale}", DenseVoxelFeatsRefiner(ch, S))
         self.transformer = TransformerPredictor(
@@ -396,7 +448,9 @@ class DensePaSCoNet(nn.Module):
         """One scene.  In training mode (``self.training``) ``labelweights``
         (scale -> [n_classes] completion weights) weight the decoder caps'
         sampling scores, and ``generator`` (on the input's device) draws the
-        point dropout, the caps' Gumbel noise and the transformer dropout.
+        dropouts and the caps' Gumbel noise.  ``mc_dropout=True`` keeps
+        every dropout live at inference (MC dropout, ``pasco_tpu/training/
+        step.py:324-341``); different generators give different samples.
         ``is_predict_panop=False`` (the sem-only pretraining phase) skips
         the refiners and the transformer, as the reference does
         (``dense_unet.py:1384, 1491``): ``panop_grids`` is empty,
@@ -404,9 +458,8 @@ class DensePaSCoNet(nn.Module):
         is the working box of this call (``cfg.scene.box_extent`` by
         default); :class:`~pasco_torch.inference.dispatch.AdaptiveForward`
         picks it per scan from ``cfg.scene.box_candidates``."""
-        if mc_dropout:
-            raise NotImplementedError(MC_DROPOUT_NOT_PORTED)
         train = self.training
+        live = train or mc_dropout
         cfg = self.cfg
         m = cfg.model
         cap = cfg.capacity
@@ -417,7 +470,7 @@ class DensePaSCoNet(nn.Module):
 
         # ---- point MLP + scatter-max featurizer --------------------------
         pm = inp.point_mask
-        if train and m.encoder_dropouts[0] > 0.0:
+        if live and m.encoder_dropouts[0] > 0.0:
             pm = point_dropout(pm, m.encoder_dropouts[0], generator)
         f = self.point_mlp(inp.point_feats, pm)
         rel = inp.point_coords[:, 1:] - box.minimum[None, :]
@@ -437,12 +490,15 @@ class DensePaSCoNet(nn.Module):
         x = enc_in_1x1(x, mask1, self.enc_in.kernel[0], self.enc_in.bias)
         enc = {1: self.enc_s1(x, mask1)}
         for stride in (2, 4, 8):
-            enc[stride] = getattr(self, f"enc_s{stride}")(*enc[stride // 2])
+            # The next stage's down and the decoder's skip read the dropped
+            # volume (dense_unet.py:1258-1268).
+            x, msk = getattr(self, f"enc_s{stride}")(*enc[stride // 2])
+            enc[stride] = (_drop(self, f"enc_drop_s{stride}", x, generator, live), msk)
 
         # ---- dense bottleneck at stride 8 ([X, Y, Z] inside) --------------
         x8 = enc[8][0].permute(0, 2, 1, 3).float()
         xb = _remat(m.remat and train, self.bottleneck, x8, cd)
-        xb = xb.to(cd).permute(0, 2, 1, 3)
+        xb = _drop(self, "dense3d_drop", xb.to(cd), generator, live).permute(0, 2, 1, 3)
         mask8 = bbox_mask(box, 8, inp.global_min, inp.global_max)
         x = torch.where(mask8[..., None], xb, torch.zeros((), dtype=cd,
                                                           device=xb.device)).contiguous()
@@ -456,7 +512,7 @@ class DensePaSCoNet(nn.Module):
             stage = getattr(self, f"dec_s{scale}")
             x, sem, top_class, top_prob, msk = stage(
                 x, parent_keep, enc[scale][0], enc[scale][1], box,
-                inp.global_min, inp.global_max)
+                inp.global_min, inp.global_max, generator, live)
             keep = (top_class != 0).any(-1) & msk
             dcap = cap.dec_capacity(scale)
             if train:
@@ -519,6 +575,6 @@ class DensePaSCoNet(nn.Module):
             sem_logits=sem_at,
             panop_grids=panop_grids,
             sem_logits_pruned=sem_pruned,
-            predictor=(self.transformer(panop_grids, box, generator)
+            predictor=(self.transformer(panop_grids, box, generator, live)
                        if is_predict_panop else None),
         )

@@ -30,7 +30,6 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-MC_DROPOUT_NOT_PORTED = "MC dropout is not ported yet (ROADMAP.md, queue 1)"
 MOMENTUM = 0.9
 
 

@@ -2,9 +2,10 @@
 (counterpart of ``pasco_tpu/models/transformer.py:43-286``).
 
 The attention layers' parameters are shared by every subnet
-(``transformer.py:255-272``); subnets run one after another.  In training
-mode the residual branches take ``cfg.dropout`` (0.0 in the flagship),
-with draws from the caller's generator.  The
+(``transformer.py:255-272``); subnets run one after another.  Where the
+caller says the dropout is live (training, or MC dropout at inference,
+``transformer.py:194-200``) the residual branches take ``cfg.dropout``
+(0.0 in the flagship), with draws from the caller's generator.  The
 sparse sine positional embedding keeps the reference's degenerate
 "normalize" (``x / (x + eps) * 2*pi``) for parity.
 """
@@ -24,10 +25,10 @@ from pasco_torch.ops.attention import masked_cross_attention, self_attention
 LN_EPS = 1e-6    # flax LayerNorm default
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool,
+def dropout(x: torch.Tensor, rate: float, live: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, rescaled."""
-    if rate == 0.0 or not training:
+    if rate == 0.0 or not live:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
@@ -65,14 +66,14 @@ class CrossAttentionLayer(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, nn.Linear(hidden_dim, hidden_dim))
 
-    def forward(self, q_embed, src, allowed, pos, query_pos, generator=None):
+    def forward(self, q_embed, src, allowed, pos, query_pos, generator=None, live=False):
         x = self.norm(q_embed)
         q = self.q_proj(x + query_pos)
         k = self.k_proj(src + pos)
         v = self.v_proj(src + pos)
         out = masked_cross_attention(q, k, v, allowed, self.num_heads,
                                      chunk=self.kv_chunk)
-        return x + dropout(self.out_proj(out), self.rate, self.training, generator)
+        return x + dropout(self.out_proj(out), self.rate, live, generator)
 
 
 class SelfAttentionLayer(nn.Module):
@@ -85,12 +86,12 @@ class SelfAttentionLayer(nn.Module):
             self.add_module(name, nn.Linear(hidden_dim, hidden_dim))
         self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
-    def forward(self, q_embed, query_pos, generator=None):
+    def forward(self, q_embed, query_pos, generator=None, live=False):
         q = self.q_proj(q_embed + query_pos)
         k = self.k_proj(q_embed + query_pos)
         v = self.v_proj(q_embed)
         out = self.out_proj(self_attention(q, k, v, self.num_heads))
-        out = dropout(out, self.rate, self.training, generator)
+        out = dropout(out, self.rate, live, generator)
         return self.norm(q_embed + out)
 
 
@@ -104,10 +105,10 @@ class FFNLayer(nn.Module):
         self.fc1 = nn.Linear(hidden_dim, dim_feedforward)
         self.fc2 = nn.Linear(dim_feedforward, hidden_dim)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, live=False):
         y = self.norm(x)
-        h = dropout(torch.relu(self.fc1(y)), self.rate, self.training, generator)
-        return y + dropout(self.fc2(h), self.rate, self.training, generator)
+        h = dropout(torch.relu(self.fc1(y)), self.rate, live, generator)
+        return y + dropout(self.fc2(h), self.rate, live, generator)
 
 
 def downscale_attn_allowed(mask_pred: torch.Tensor, grid1: SparseGrid,
@@ -149,7 +150,8 @@ class TransformerPredictor(nn.Module):
             self.add_module(f"ffn_{i}", FFNLayer(H, cfg.dim_feedforward, cfg.dropout))
 
     def forward(self, panop_grids: Dict[int, SparseGrid], box: Box,
-                generator: Optional[torch.Generator] = None) -> PredictorOutput:
+                generator: Optional[torch.Generator] = None,
+                live: bool = False) -> PredictorOutput:
         cfg = self.cfg
         S = self.n_infers
         npf = cfg.hidden_dim // 3
@@ -185,9 +187,10 @@ class TransformerPredictor(nn.Module):
                 allowed = downscale_attn_allowed(
                     preds_mask[-1][s], grid1.subnet(s), gs, box, scale)
                 o = getattr(self, f"cross_{i}")(
-                    output[s], src[s], allowed, pos_s, self.query_embed[s], generator)
-                outs.append(getattr(self, f"self_{i}")(o, self.query_embed[s], generator))
-            output = getattr(self, f"ffn_{i}")(torch.stack(outs), generator)
+                    output[s], src[s], allowed, pos_s, self.query_embed[s], generator, live)
+                outs.append(getattr(self, f"self_{i}")(o, self.query_embed[s], generator,
+                                                         live))
+            output = getattr(self, f"ffn_{i}")(torch.stack(outs), generator, live)
             cls, msk = pred_heads(output)
             preds_class.append(cls)
             preds_mask.append(msk)

@@ -69,8 +69,9 @@ class CheckpointManager:
         steps = self.all_steps()
         if len(steps) <= self.max_to_keep:
             return
-        monitor = {s: torch.load(self._path(s), map_location="cpu", weights_only=False)
-                   ["metrics"].get("monitor", 0.0) for s in steps}
+        # mmap: only the small metrics entry is read, not the tensors
+        monitor = {s: torch.load(self._path(s), map_location="cpu", weights_only=False,
+                                 mmap=True)["metrics"].get("monitor", 0.0) for s in steps}
         best = sorted(steps, key=lambda s: (monitor[s], s), reverse=True)[: self.max_to_keep]
         for s in steps:
             if s not in best and s != steps[-1]:

@@ -1,4 +1,5 @@
-"""One training step (counterpart of ``pasco_tpu/training/step.py:38-246``).
+"""Training and evaluation steps (counterpart of
+``pasco_tpu/training/step.py:38-341``).
 
 The loss is assembled as the reference weights it
 (``net_panoptic_sparse.py:141-166, 355-483``):
@@ -8,6 +9,9 @@ The loss is assembled as the reference weights it
           + 0.3 * ssc_ce + 1.0 * ssc_lovasz             [voxel-query SSC]
           + the same terms for each aux prediction level
 
+Gradient accumulation (``step.py:249-309``) runs one :func:`grad_step`
+per microbatch, whose ``backward`` adds into ``.grad``, then one
+:func:`apply_grads` that updates on the window's mean gradient.
 ``TrainState``, ``class_weight_vector`` and ``labelweights_for`` are NumPy
 and torch here: the reference module imports JAX.
 """
@@ -15,7 +19,7 @@ and torch here: the reference module imports JAX.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,28 +122,75 @@ def compute_losses(net, inp: ModelInput, targets: TargetBundle,
     return total, logs
 
 
+def grad_step(state: TrainState, inp: ModelInput, targets: TargetBundle,
+              labelweights: Dict[int, torch.Tensor], class_weight: torch.Tensor,
+              cfg: PaSCoConfig, generator: torch.Generator,
+              is_predict_panop: bool = True) -> Dict[str, torch.Tensor]:
+    """One microbatch: forward in training mode, ``backward`` (adding its
+    gradients into ``.grad``) and the running statistics folded in, with no
+    update (``pasco_tpu/training/step.py:249-283``).  Returns the logs
+    (detached tensors on the device)."""
+    net = state.net
+    net.train()
+    total, logs = compute_losses(net, inp, targets, labelweights, class_weight, cfg,
+                                 generator, is_predict_panop)
+    total.backward()
+    commit_batch_stats(net)
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def zero_grads(state: TrainState) -> None:
+    """Open a gradient window: every ``.grad`` cleared."""
+    for p in state.opt.params.values():
+        p.grad = None
+
+
+def apply_grads(state: TrainState, n_accum: int = 1) -> torch.Tensor:
+    """The optimizer update on the mean of the ``.grad`` that ``n_accum``
+    microbatches added up (clip and AdamW on the mean, as
+    ``pasco_tpu/training/step.py:292-309`` applies it) and ``state.step +
+    1``; ``.grad`` keeps the sum until :func:`zero_grads` opens the next
+    window.  A parameter no microbatch reached counts a zero gradient.
+    Returns the pre-clip norm of the mean."""
+    grads = {}
+    for k, p in state.opt.params.items():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        grads[k] = g / n_accum if n_accum > 1 else g
+    norm = state.opt.step(grads)
+    state.step += 1
+    return norm
+
+
 def train_step(state: TrainState, inp: ModelInput, targets: TargetBundle,
                labelweights: Dict[int, torch.Tensor], class_weight: torch.Tensor,
                cfg: PaSCoConfig, seed: int = 0,
                is_predict_panop: bool = True) -> Dict[str, torch.Tensor]:
-    """One optimisation step in place: forward in training mode, backward,
-    the running statistics folded in, the optimizer update.  Returns the
-    logs (detached tensors on the device), ``grad_norm`` (pre-clip)
-    included.  ``is_predict_panop=False`` trains the sem-completion
-    losses only; the refiners and the transformer then get zero gradients,
-    as in the reference (``pasco_tpu/training/step.py:200-230``)."""
-    net = state.net
-    net.train()
+    """One optimisation step in place: :func:`grad_step` on this scene with
+    the generator of ``(seed, state.step)``, then :func:`apply_grads`.
+    Returns the logs, ``grad_norm`` (pre-clip) included.
+    ``is_predict_panop=False`` trains the sem-completion losses only; the
+    refiners and the transformer then get zero gradients, as in the
+    reference (``pasco_tpu/training/step.py:200-230``)."""
+    zero_grads(state)
     gen = step_generator(seed, state.step, inp.point_feats.device)
-    params = state.opt.params
-    for p in params.values():
-        p.grad = None
-    total, logs = compute_losses(net, inp, targets, labelweights, class_weight, cfg, gen,
-                                 is_predict_panop)
-    total.backward()
-    commit_batch_stats(net)
-    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-             for k, p in params.items()}
-    logs["grad_norm"] = state.opt.step(grads)
-    state.step += 1
-    return {k: v.detach() for k, v in logs.items()}
+    logs = grad_step(state, inp, targets, labelweights, class_weight, cfg, gen,
+                     is_predict_panop)
+    logs["grad_norm"] = apply_grads(state)
+    return logs
+
+
+@torch.no_grad()
+def eval_step(net, inp: ModelInput):
+    """The inference forward (``pasco_tpu/training/step.py:312-321``)."""
+    net.eval()
+    return net(inp)
+
+
+@torch.no_grad()
+def mc_eval_step(net, inp: ModelInput, generator: Optional[torch.Generator]):
+    """One MC-dropout sample (``pasco_tpu/training/step.py:324-341``): the
+    inference forward with every dropout live, BatchNorm on its running
+    statistics and the caps off; another ``generator`` gives another
+    sample."""
+    net.eval()
+    return net(inp, generator=generator, mc_dropout=True)

@@ -22,8 +22,14 @@ default the configured 352 box).  Prints
    end, kernel time by group (the four hand-written kernels, cuDNN
    convolutions, GEMMs, other torch kernels) and the top kernels.
 
-Writes ``forward_profile.json`` (all of the above) and the Chrome trace
-``forward_trace.json`` into ``--out``.
+4. per decoder scale, the kept cells (``top_class != 0`` for some subnet,
+   before the cap) against the stage's valid cells, and the extracted
+   (capped) count.
+
+``BENCH_TRAINED_CKPT=<npz>`` loads trained weights (the file of
+``scripts_torch/make_bench_ckpt.py``, n_infers 1) in place of the random
+init.  Writes ``forward_profile.json`` (all of the above) and the Chrome
+trace ``forward_trace.json`` into ``--out``.
 
 With ``--train``: ``PaSCoConfig()`` at ``n_infers`` on the train box,
 seeded random init, one synthetic scene with targets (as ``chip_smoke.py``
@@ -119,6 +125,26 @@ def module_times(net, forward) -> dict:
     return {"forward": total, **per}
 
 
+def kept_cells(net, forward) -> dict:
+    """Per decoder scale of one ``forward()``: the valid cells, the kept
+    ones (some subnet's argmax is not "empty") and the extracted count."""
+    seen = {}
+    hooks = [getattr(net, f"dec_s{sc}").register_forward_hook(
+        lambda _m, _a, o, sc=sc: seen.__setitem__(sc, (o[2], o[4])))
+        for sc in (4, 2, 1)]
+    try:
+        out = forward()
+    finally:
+        for h in hooks:
+            h.remove()
+    res = {}
+    for sc, (top, msk) in seen.items():
+        valid, kept = int(msk.sum()), int(((top != 0).any(-1) & msk).sum())
+        res[f"s{sc}"] = {"valid": valid, "kept": kept, "fraction": kept / max(valid, 1),
+                         "extracted": int(out.sem_grids[sc].mask.sum())}
+    return res
+
+
 def kernel_table(trace_path: str) -> dict:
     with open(trace_path) as fh:
         events = [e for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"]
@@ -163,20 +189,19 @@ def train_profile(args) -> None:
     """The ``--train`` mode (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import train_scenes
     from pasco_torch.core.config import PaSCoConfig
     from pasco_torch import kernels
     from pasco_torch.models.norm import commit_batch_stats
     from pasco_torch.models.unet import build_net, scene_to_model_input
     from pasco_torch.training import step as tstep
-    from pasco_torch.training.loop import train_config
+    from pasco_torch.training.loop import synthetic_train_scenes, train_config
     from pasco_torch.data.semantic_kitti.params import CLASS_FREQUENCIES
 
     dev = torch.device("cuda", 0)
     base = PaSCoConfig()
     base = base.replace(model=dataclasses.replace(base.model, n_infers=args.n_infers))
     cfg = train_config(base)
-    (col,) = train_scenes(base, 1, seed=args.seed)
+    (col,) = synthetic_train_scenes(base, 1, seed=args.seed)
     inp = scene_to_model_input(col, dev)
     tgt = tstep.targets_to_device(col.targets, dev)
     lw = {s: torch.as_tensor(v, device=dev)
@@ -288,11 +313,19 @@ def main() -> None:
     box = (args.box, args.box, cfg.scene.box_extent[2]) if args.box else cfg.scene.box_extent
     net = build_net(cfg, dev)
     net.reset_parameters(torch.Generator().manual_seed(args.seed))
+    trained = os.environ.get("BENCH_TRAINED_CKPT", "")
+    if trained:
+        import numpy as np
+
+        from pasco_torch.convert import flax_to_torch
+
+        data = np.load(trained)
+        net.load_state_dict(flax_to_torch({k: data[k] for k in data.files}), strict=True)
 
     def forward():
         return net(inp, box_extent=box)
 
-    res = {"box": list(box)}
+    res = {"box": list(box), "weights": trained or "seeded random init"}
     with torch.no_grad():
         for _ in range(2):
             forward()
@@ -307,6 +340,7 @@ def main() -> None:
         res["device_ms"] = statistics.median(devs)
         res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         res["modules_ms"] = module_times(net, forward)
+        res["kept"] = kept_cells(net, forward)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             forward()
             torch.cuda.synchronize()
@@ -327,6 +361,10 @@ def main() -> None:
     print("top kernels:")
     for t in res["top"]:
         print(f"  {t['ms']:9.3f} ms  {t['launches']:4d}  {t['name']}")
+    print(f"kept cells per decoder scale ({res['weights']}):")
+    for k, v in res["kept"].items():
+        print(f"  {k}: {v['kept']} of {v['valid']} valid ({100 * v['fraction']:.2f}%), "
+              f"{v['extracted']} extracted")
     with open(os.path.join(args.out, "forward_profile.json"), "w") as fh:
         json.dump(res, fh, indent=1)
 

@@ -709,3 +709,53 @@ def test_mimo_train_step_matches_cpu_plain(dev):
 
     for seed in (1, 2, 3, 4):
         narrow_step_check(dev, n_infers=3, seed=seed)
+
+
+def test_train_step_with_spatial_dropout_matches_cpu_plain(dev):
+    """The narrow train step with every spatial dropout at 0.2, the CPU
+    steps on the card step's keep vectors (``chip_smoke.DecisionPins``),
+    bounds at ``chip_smoke.narrow_step_check``, on each of two scenes."""
+    from chip_smoke import narrow_step_check
+
+    for seed in (1, 2):
+        narrow_step_check(dev, seed=seed, dropout=0.2)
+
+
+def test_mc_dropout_on_card(dev):
+    """``chip_smoke.mc_dropout_phase`` on one synthetic scan: two MC
+    samples differ, rows 1-5 launch as on the inference path, the eval
+    forward before and after is bit-identical."""
+    from chip_smoke import make_scans, mc_dropout_phase
+
+    from pasco_torch.core.config import PaSCoConfig
+
+    (_, inp), = make_scans(PaSCoConfig(), 1, dev)
+    mc_dropout_phase(dev, inp)
+
+
+def test_trainer_on_card_with_resume(dev, tmp_path):
+    """``train`` at ``flagship_narrow_config(1)`` (full widths, small box)
+    on the card: 2 epochs of 4 scenes at ``accum_steps=2`` with 2 worker
+    processes and a validation scene, then a resumed run that goes on from
+    step 4; the training conv runs on its kernel (``conv3_dx`` launches)."""
+    from pasco_torch.core.config import flagship_narrow_config
+    from pasco_torch.data.synthetic import SyntheticKittiDataset
+    from pasco_torch.training.loop import read_metrics, train
+
+    cfg = flagship_narrow_config(n_infers=1)
+
+    def data(n, **kw):
+        return SyntheticKittiDataset(n_scenes=n, n_subnets=1, scene_size=cfg.scene.scene_size,
+                                     n_points=3000, point_feat_dim=cfg.model.in_channels - 6,
+                                     **kw)
+
+    kernels.reset_launches()
+    state = train(cfg, data(4), data(1, split="val", seed=50), n_epochs=2,
+                  log_dir=str(tmp_path), accum_steps=2, num_workers=2, device=dev)
+    assert state.step == 4 and kernels.LAUNCHES["conv3_dx"] > 0
+    assert all(r["total_loss"] == r["total_loss"] and r["grad_norm"] > 0
+               for r in state.history)
+    assert sum("val/pq_dagger_all" in r for r in read_metrics(str(tmp_path))) == 2
+    more = train(cfg, data(4), n_epochs=1, limit_train_batches=2, log_dir=str(tmp_path),
+                 accum_steps=2, num_workers=2, device=dev)
+    assert [r["step"] for r in more.history] == [5]

@@ -1,8 +1,9 @@
 """The port imports torch and never JAX, and nothing of the JAX package:
 every ``pasco_torch`` module (the dispatch, evaluation, checkpoint,
-converter, tables, timing, visualization and Robo3D modules named),
-``chip_smoke.py`` and the scripts in ``scripts_torch/`` (the bench and the
-three evaluation CLIs named) import in a fresh interpreter with
+converter, tables, timing, visualization, Robo3D, trainer and scene-loader
+modules named), ``chip_smoke.py`` and the scripts in ``scripts_torch/``
+(the bench, the three evaluation CLIs and the three training CLIs named)
+import in a fresh interpreter with
 no ``jax``, ``jaxlib``, ``flax`` or ``pasco_tpu`` module in
 ``sys.modules`` afterwards."""
 
@@ -31,9 +32,12 @@ assert "scripts_torch/profile_forward.py" in scripts, scripts
 for name in ("pasco_torch.inference.dispatch", "pasco_torch.inference.evaluate",
              "pasco_torch.utils.timing", "pasco_torch.utils.visualization",
              "pasco_torch.metrics.tables", "pasco_torch.training.convert_torch",
-             "pasco_torch.training.checkpoint", "pasco_torch.data.semantic_kitti.robo3d"):
+             "pasco_torch.training.checkpoint", "pasco_torch.data.semantic_kitti.robo3d",
+             "pasco_torch.training.loop", "pasco_torch.training.step",
+             "pasco_torch.data.loader"):
     assert name in names, name
-for name in ("bench", "eval", "eval_robo3d", "save_outputs_panoptic"):
+for name in ("bench", "eval", "eval_robo3d", "save_outputs_panoptic", "train",
+             "bench_train_step", "make_bench_ckpt"):
     assert f"scripts_torch/{name}.py" in scripts, name
 """
 

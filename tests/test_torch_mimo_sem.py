@@ -53,19 +53,25 @@ def test_sem_step_running_stats_and_update(runs):
         check_running_stats_and_update(cfg, ref, got, only_where_grads_agree=True)
 
 
-def test_trainer_pretrains_sem_first():
+def test_trainer_pretrains_sem_first(tmp_path):
     """``loop.train`` at ``tiny_config(n_infers=3)``: by default the first
-    epoch (one pass over the scenes) is sem-only, as the reference's
-    ``pretrain_sem_epochs = 1`` at n_infers=3; an explicit step count
-    overrides it.  Every step has a finite loss and a non-zero gradient."""
+    epoch is sem-only, as the reference's ``pretrain_sem_epochs = 1`` at
+    n_infers=3; an explicit ``pretrain_sem_epochs`` overrides it, here in a
+    run that resumes the first and trains both its epochs panoptic.  Every
+    step has a finite loss and a non-zero gradient."""
+    from pasco_torch.data.synthetic import SyntheticKittiDataset
     from pasco_torch.training.loop import train
 
     cfg = tiny_config(n_infers=3).replace(optim=OptimConfig(lr=1e-3, warmup_steps=0))
-    col = synthetic_batch(cfg, seed=3)
-    freqs = {s: np.ones(cfg.model.n_classes) for s in (1, 2, 4)}
-    state = train(cfg, [col] * 2, device="cpu", class_frequencies=freqs, log=None)
-    assert [h["is_predict_panop"] for h in state.history] == [False, False]
-    state = train(cfg, [col] * 2, class_frequencies=freqs, log=None, state=state,
-                  pretrain_sem_steps=3)
-    assert [h["is_predict_panop"] for h in state.history] == [False, False, False, True]
-    assert all(np.isfinite(h["total_loss"]) and h["grad_norm"] > 0 for h in state.history)
+    ds = SyntheticKittiDataset(n_scenes=2, n_subnets=3, scene_size=cfg.scene.scene_size,
+                               n_points=1200, point_feat_dim=cfg.model.in_channels - 6)
+    kw = dict(log_dir=str(tmp_path), class_frequencies={s: np.ones(cfg.model.n_classes)
+                                                        for s in (1, 2, 4)},
+              limit_train_batches=1, num_workers=0, device="cpu")
+    first = train(cfg, ds, n_epochs=1, **kw)
+    assert [h["is_predict_panop"] for h in first.history] == [False]
+    state = train(cfg, ds, n_epochs=2, pretrain_sem_epochs=0, **kw)
+    assert [(h["step"], h["is_predict_panop"]) for h in state.history] == [(2, True),
+                                                                           (3, True)]
+    assert all(np.isfinite(h["total_loss"]) and h["grad_norm"] > 0
+               for h in first.history + state.history)

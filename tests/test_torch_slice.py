@@ -82,14 +82,25 @@ def test_output_shapes(both_outputs):
 
 
 def test_unported_modes_raise():
-    """MC dropout is not ported: ``mc_dropout=True`` raises in both modes."""
+    """MC dropout is ported: ``mc_dropout=True`` runs in both modes, with
+    finite outputs of the inference shapes; at the released recipe's zero
+    spatial and transformer rates (no point dropout at ``tiny_config``) it
+    is the eval forward.  (Before the port had it, this test required a
+    raise.)"""
     cfg = tiny_f32_config()
     net = build_net(cfg, device="cpu")
+    net.reset_parameters(torch.Generator().manual_seed(0))
     inp = ModelInput(*(torch.from_numpy(np.array(a)) for a in make_input(cfg, rng=1)))
-    for mode in (net.eval, net.train):
-        mode()
-        with pytest.raises(NotImplementedError):
-            net(inp, mc_dropout=True)
+    with torch.no_grad():
+        plain = net(inp).predictor.query_logits
+        for mode in (net.eval, net.train):
+            mode()
+            out = net(inp, generator=torch.Generator().manual_seed(1), mc_dropout=True)
+            q = out.predictor.query_logits
+            assert q.shape == plain.shape and torch.isfinite(q).all()
+    net.eval()
+    with torch.no_grad():
+        assert torch.equal(net(inp, mc_dropout=True).predictor.query_logits, plain)
 
 
 def test_scene_inference_on_synthetic_scan():

@@ -20,8 +20,8 @@
   sign is noise below the gradient tolerance), and the update itself
   within ``1e-3 * lr`` wherever ``|g_ref|`` exceeds twice the gradient
   tolerance and the clipped ``|g_ref|`` exceeds ``1e-5``.
-* The trainer (``pasco_torch/training/loop.py:train``): 5 steps on one
-  synthetic scene at ``tiny_config`` lower the loss (the counterpart of
+* The trainer's step on its state: 5 steps on one synthetic scene at
+  ``tiny_config`` lower the loss (the counterpart of
   ``tests/test_train_step.py:29-66``).
 
 The panoptic target slots are capped at the query count: with more slots
@@ -418,17 +418,24 @@ def test_step_running_stats_and_update(both_steps):
 
 
 def test_trainer_lowers_loss():
-    """``loop.train``: 5 steps on one synthetic scene at ``tiny_config``
-    (bf16), ``lr=1e-3``, no warmup: finite losses, the last below the
-    first."""
-    from pasco_torch.training.loop import train
+    """``training/step.py:train_step`` on the trainer's state
+    (``loop.new_train_state``, ``loop.loss_weights``): 5 steps on one
+    synthetic scene at ``tiny_config`` (bf16), ``lr=1e-3``, no warmup:
+    finite losses, non-zero gradients, the last loss below the first."""
+    from pasco_torch.training import loop
+    from pasco_torch.training import step as tstep
 
     cfg = tiny_config(n_infers=1).replace(optim=OptimConfig(lr=1e-3, warmup_steps=0))
     col = synthetic_batch(cfg, seed=3)
     freqs = {s: np.ones(cfg.model.n_classes) for s in (1, 2, 4)}
-    state = train(cfg, [col] * 5, device="cpu", class_frequencies=freqs, log=None)
-    losses = [h["total_loss"] for h in state.history]
+    state = loop.new_train_state(cfg, "cpu", seed=0)
+    lw, cw = loop.loss_weights(cfg, freqs, torch.device("cpu"))
+    inp = scene_to_model_input(col, "cpu")
+    tgt = tstep.targets_to_device(col.targets, "cpu")
+    logs = [tstep.train_step(state, inp, tgt, lw, cw, loop.train_config(cfg), 0)
+            for _ in range(5)]
+    losses = [float(r["total_loss"]) for r in logs]
     assert len(losses) == 5 and state.step == 5
     assert all(np.isfinite(losses)), losses
-    assert all(h["grad_norm"] > 0 for h in state.history)
+    assert all(float(r["grad_norm"]) > 0 for r in logs)
     assert losses[-1] < losses[0], losses
