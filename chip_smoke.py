@@ -53,8 +53,9 @@
    and 12 ``stream_extract`` launches per forward), then
    ``run_scene_inference`` (4 outputs) and the ``Evaluator`` with the
    PQ, SSC mIoU and ECE of every output, and the bench protocol on all
-   six; then ``scripts_torch/eval.py`` on the card on a fake val scan with
-   a released-format checkpoint at full widths (:func:`eval_cli_phase`);
+   six (one run: they all take the 352 box); ``scripts_torch/eval.py`` on
+   the card on a fake val scan with a released-format checkpoint at full
+   widths runs in a subprocess beside step 9's CLIs (:func:`start_eval_cli`);
 6. training, kernel phase: the differentiable conv of every residual
    block (``MaskedConv3Fn``: forward and data gradient on the conv kernel)
    at the train box (256, 256, 32), f=64, on the scan's s1 occupancy and a
@@ -70,13 +71,13 @@
    per-parameter gradients within the bounds stated at
    :func:`narrow_step_check` (the card tests run it at zero rates too);
 8. the trainer (``pasco_torch.training.loop.train``) at ``PaSCoConfig()``:
-   n_infers 1 on 4 synthetic scenes with 1 validation scene, 2 epochs,
-   ``accum_steps=2``, 3 worker processes, then a restore checked bit for
+   n_infers 1 on 2 of 4 synthetic scenes an epoch with 1 validation
+   scene, 2 epochs, ``accum_steps=2``, 3 worker processes, then a restore checked bit for
    bit and a resumed run in the same directory (:func:`trainer_phase`: s
    per optimizer step, ms between CUDA events per microbatch, the idle
    share between steps over the second epoch, validation s per scene,
-   checkpoint size and save time); n_infers 3, 2 epochs of 2
-   scenes, the first sem-only (:func:`trainer_mimo_phase`); each with
+   checkpoint size and save time); n_infers 3, 2 epochs of 1 scene, the
+   first sem-only (:func:`trainer_mimo_phase`); each with
    finite losses, moved running statistics and the training conv's
    launches per microbatch;
 9. MC dropout at the flagship widths with ``--net_3d_dropout 0.2`` and
@@ -84,12 +85,33 @@
    the CLIs: ``scripts_torch/make_bench_ckpt.py --steps 2`` with one
    forward on its npz through ``scripts_torch/bench.py``'s loader, while
    ``scripts_torch/bench_train_step.py --steps 2`` runs in a subprocess
-   (:func:`cli_phase`).
+   (:func:`cli_phase`);
+10. data parallelism at the flagship's full width (:func:`dp_phase`): two
+   ranks sharing the card over gloo, on two copies of a train scene with
+   SyncBN and shared draws, must take the single-card step (bit-identical
+   where the kernels are deterministic) and must miss it with a
+   BatchNorm reduction that cuts the statistics' gradient; on two
+   distinct scenes without SyncBN it must take their accumulation's
+   step on one card; ``dp_eval_step`` on two scenes gives the sum of
+   their counts; then a one-rank NCCL group takes the same step;
+11. the KITTI-360 preset, ``kitti360_config(n_infers=2)`` at full width on
+   synthetic 2-view scans with 8 raw channels (:func:`kitti360_phase`):
+   one forward through ``AdaptiveForward`` launching each kernel exactly
+   ``forward_launch_floor(2)`` times, ``run_scene_inference`` and the
+   ``Evaluator`` (19 classes), one panoptic train step.
+
+Each ``run_scene_inference`` (steps 5 and 11) takes its forward on the
+card in its phase; its host part, the ensembling and the ``Evaluator``,
+runs in a worker process beside the card's later phases
+(:func:`start_scene_inference`), and its lines print after the last phase.
 
 Prints each phase's wall time, the whole run's, and a JSON line with the
 kernels' numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
 ``bound_by``, ``device_ms`` for rows 4-5 and 8; launches from the MIMO
-forward, the n_infers 3 trainer and the two entry-point phases; rows 1-5
+forward, the n_infers 3 trainer and the two entry-point phases, and under
+``launches_by_path`` those of every path, each counted from 0 just before
+it: the MIMO forward, the n_infers 3 trainer, rank 0's data-parallel step
+and the KITTI-360 forward; rows 1-5
 again per smaller box, named by box, with the launches at that box in the
 n_infers=1 bench run), then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
@@ -124,6 +146,8 @@ N_SCANS = 3
 BENCH_SCANS = 6            # bench.py's scans (its BENCH_SCANS default)
 LADDER = (256, 288, 320)   # the candidate boxes below the flagship's 352
 MIMO_S = 3                 # the reference's MIMO headline config (bench.py:54)
+KITTI360_S = 2             # the SSCBench-KITTI360 ensemble (SURVEY §6)
+DP_WORLD = 2               # ranks sharing the one card in dp_phase
 # residual-block 3^3 convs per forward: 4 encoder + 3 decoder stages x
 # 3 blocks x 2 convs
 RES_CONVS = 42
@@ -215,19 +239,32 @@ def eval_scene(cfg, rng, n_points=120000, max_angle=30.0):
     from pasco_torch.data.synthetic import make_scene
     from pasco_torch.data.transform_utils import generate_random_transformation
 
-    scene = make_scene(
+    scene = preset_scene(make_scene(
         rng, scene_size=cfg.scene.scene_size,
         n_points=min(cfg.capacity.num_points, n_points),
         point_feat_dim=cfg.model.in_channels - 6,
-    )
+    ), cfg)
     views = []
     for _ in range(cfg.model.n_infers):
         T = generate_random_transformation(
             rng, max_angle=max_angle, scale_range=0.0,
             max_translation=(0.2, 0.2, 0.1),
         )
-        views.append(process_scene(scene, T, rng))
+        views.append(process_scene(scene, T, rng, n_classes=cfg.model.n_classes,
+                                   thing_ids=cfg.thing_ids))
     return collate(views, cfg, rng=rng)
+
+
+def preset_scene(scene, cfg):
+    """A synthetic scene (SemanticKITTI's 20 classes) in ``cfg``'s classes:
+    the labels past the preset's last class folded into it (KITTI-360's 19
+    classes end at other-object); unchanged at 20 classes."""
+    C = cfg.model.n_classes
+    sem = scene.semantic_label
+    if int(sem[sem != 255].max(initial=0)) < C:
+        return scene
+    return scene._replace(semantic_label=np.where((sem >= C) & (sem != 255), C - 1,
+                                                  sem).astype(sem.dtype))
 
 
 def make_scans(cfg, n, device, seed=0):
@@ -1170,17 +1207,17 @@ def _check_trained(label, state, launches, n_micro):
 
 def trainer_phase(dev):
     """``pasco_torch.training.loop.train`` at ``PaSCoConfig()`` (n_infers 1):
-    4 synthetic scenes (120000 points) and 1 validation scene, 2 epochs,
-    ``accum_steps=2``, 3 worker processes, in a temporary ``log_dir``.
-    Requires 4 optimizer steps, the checks of :func:`_check_trained`, the
+    2 of 4 synthetic scenes (120000 points) an epoch and 1 validation
+    scene, 2 epochs, ``accum_steps=2``, 3 worker processes, in a temporary
+    ``log_dir``.  Requires 2 optimizer steps, the checks of :func:`_check_trained`, the
     epoch and ``val/pq_dagger_all`` lines in ``metrics.jsonl`` and
     checkpoints at both epochs.  Then the latest checkpoint, restored as
     ``train()`` restores it (``CheckpointManager.restore``) into the final
     state zeroed, must give back the net (parameters and running
     statistics), both AdamW moments, the update count and the step bit for
-    bit; and a second ``train()`` in that directory (one epoch of 2
-    scenes, collated in this process) must resume there and go on from
-    step 4 to 5.  Prints s per optimizer step (host clock), the ms between
+    bit; and a second ``train()`` in that directory (one epoch of one
+    scene, ``accum_steps=1``, collated in this process) must resume there
+    and go on from step 2 to 3.  Prints s per optimizer step (host clock), the ms between
     CUDA events around each microbatch (host work inside the step that the
     card waits on, the matching, counts: not the card's busy time), the
     idle share between steps over the second epoch (1 - the epoch's summed
@@ -1199,25 +1236,25 @@ def trainer_phase(dev):
         t0 = time.perf_counter()
         state = train(cfg, _synthetic_dataset(cfg, 4),
                       _synthetic_dataset(cfg, 1, split="val", seed=50), n_epochs=2,
-                      log_dir=log_dir, accum_steps=2, num_workers=3, device=dev)
+                      limit_train_batches=2, log_dir=log_dir, accum_steps=2, num_workers=3, device=dev)
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        if state.step != 4 or len(state.history) != 4:
+        if state.step != 2 or len(state.history) != 2:
             raise AssertionError(f"{label}: {state.step} steps, {len(state.history)} records")
         _check_trained(label, state, launches, 2)
         metrics = read_metrics(log_dir)
         epochs = [r for r in metrics if "epoch" in r]
         val = [r for r in metrics if "val/pq_dagger_all" in r]
         ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
-        if len(epochs) != 2 or len(val) != 2 or ckpt.all_steps() != [2, 4]:
+        if len(epochs) != 2 or len(val) != 2 or ckpt.all_steps() != [1, 2]:
             raise AssertionError(f"{label}: metrics {metrics}, checkpoints {ckpt.all_steps()}")
         second = [r for r in state.history if r["epoch"] == 1]
         idle = 1 - sum(r["event_ms"] for r in second) / 1e3 / epochs[1]["epoch_time"]
         micro = [ms for r in state.history for ms in r["micro_event_ms"]]
-        size = os.path.getsize(os.path.join(ckpt.directory, "ckpt_4.pt")) / 1e9
+        size = os.path.getsize(os.path.join(ckpt.directory, "ckpt_2.pt")) / 1e9
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as other:
             t1 = time.perf_counter()
-            CheckpointManager(other).save(4, state, {"monitor": val[-1]["val/pq_dagger_all"]})
+            CheckpointManager(other).save(2, state, {"monitor": val[-1]["val/pq_dagger_all"]})
             save_s = time.perf_counter() - t1
         print(f"{label}: {wall:.1f} s for 2 epochs; s per optimizer step "
               f"{[round(r['step_s'], 4) for r in state.history]} (median "
@@ -1241,24 +1278,24 @@ def trainer_phase(dev):
         diff = [k for k, v in state.net.state_dict().items() if not torch.equal(v, saved[k])]
         diff += [f"opt.{n}.{k}" for n, m in moments.items() for k, v in m.items()
                  if not torch.equal(getattr(state.opt, n)[k], v)]
-        if diff or state.step != 4 or state.opt.count != count:
+        if diff or state.step != 2 or state.opt.count != count:
             raise AssertionError(f"{label}: restore differs: step {state.step}, count "
                                  f"{state.opt.count}, {diff[:5]}")
         n_tensors = len(saved)
         del state, saved, moments
         more = train(cfg, _synthetic_dataset(cfg, 4), n_epochs=1, log_dir=log_dir,
-                     limit_train_batches=2, accum_steps=2, num_workers=0, device=dev)
-        if [r["step"] for r in more.history] != [5] or ckpt.latest_step() != 5:
-            raise AssertionError(f"{label}: the resumed run did not go on from step 4: "
+                     limit_train_batches=1, num_workers=0, device=dev)
+        if [r["step"] for r in more.history] != [3] or ckpt.latest_step() != 3:
+            raise AssertionError(f"{label}: the resumed run did not go on from step 2: "
                                  f"{more.history}, checkpoints {ckpt.all_steps()}")
-        print(f"{label}: restored step 4 bit-identical ({n_tensors} tensors, both AdamW "
-              f"moments, count {count}); the resumed run took step 5, "
+        print(f"{label}: restored step 2 bit-identical ({n_tensors} tensors, both AdamW "
+              f"moments, count {count}); the resumed run took step 3, "
               f"total_loss {more.history[0]['total_loss']:.6g}", flush=True)
     return launches
 
 
 def trainer_mimo_phase(dev):
-    """``train`` at ``PaSCoConfig()`` with n_infers 3: 2 epochs of 2
+    """``train`` at ``PaSCoConfig()`` with n_infers 3: 2 epochs of 1 of 2
     synthetic scenes (3 augmented views each), no validation; the first
     epoch is sem-only (``{4: 2, 3: 1}``) and the second panoptic.  The
     checks of :func:`_check_trained`; prints s/step, the ms between CUDA
@@ -1274,16 +1311,16 @@ def trainer_mimo_phase(dev):
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
         state = train(cfg, _synthetic_dataset(cfg, 2, data_aug=True), n_epochs=2,
-                      log_dir=log_dir, num_workers=3, device=dev)
+                      limit_train_batches=1, log_dir=log_dir, num_workers=3, device=dev)
         launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     panop = [r["is_predict_panop"] for r in state.history]
-    if panop != [False, False, True, True]:
+    if panop != [False, True]:
         raise AssertionError(f"{label}: is_predict_panop per step {panop}")
     _check_trained(label, state, launches, 1)
     print(f"{label}: s/step {[round(r['step_s'], 4) for r in state.history]}, ms between "
-          f"events {[round(r['event_ms'], 2) for r in state.history]} (sem-only, sem-only, panoptic, "
-          f"panoptic), peak {peak:.3f} GB, launches {launches}", flush=True)
+          f"events {[round(r['event_ms'], 2) for r in state.history]} (sem-only, panoptic), "
+          f"peak {peak:.3f} GB, launches {launches}", flush=True)
     return launches
 
 
@@ -1353,6 +1390,23 @@ def mc_dropout_phase(dev, inp):
           f"before and after bit-identical, state untouched", flush=True)
 
 
+def _wait_logged(proc, logs, timeout=600):
+    """Wait for ``proc`` (killed after ``timeout`` s) and read back its
+    standard output and error from the temporary files ``logs``."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return texts
+
+
 def cli_phase(dev, inp):
     """``scripts_torch/bench_train_step.py --steps 2`` in a subprocess,
     whose last line must be its JSON, while this process runs
@@ -1379,17 +1433,11 @@ def cli_phase(dev, inp):
                 res = check_output(cfg, fwd(inp))
         print(f"make_bench_ckpt --steps 2: {t_make:.1f} s; BENCH_TRAINED_CKPT forward: kept "
               f"{res[0]}", flush=True)
-        proc.wait(timeout=600)
+    except BaseException:
+        proc.kill()
+        raise
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    texts = []
-    for f in logs:
-        f.seek(0)
-        texts.append(f.read())
-        f.close()
-    stdout, stderr = texts
+        stdout, stderr = _wait_logged(proc, logs)
     lines = stdout.strip().splitlines()
     if proc.returncode != 0 or not lines:
         raise AssertionError(f"bench_train_step.py exit {proc.returncode}: {stderr[-2000:]}")
@@ -1425,7 +1473,8 @@ def host_scenes(kind, n_infers, n, seed, nice=0, out=None):
     """Collated scenes of ``PaSCoConfig()`` at ``n_infers``, drawn on the
     host (NumPy only, so a worker process draws them while the card works):
     ``"eval"`` the scans of :func:`make_scans`, ``"train"`` those of
-    ``synthetic_train_scenes``, ``"unaugmented"`` :func:`unaugmented_scene`.
+    ``synthetic_train_scenes``, ``"unaugmented"`` :func:`unaugmented_scene`,
+    ``"kitti360"`` the scan and the train scene of :func:`kitti360_scenes`.
     ``nice`` lowers the drawing process's priority, so that it takes the
     cores the main process leaves idle.  With ``out``, the scenes are
     pickled to that file and the path is returned: the process that waits
@@ -1445,6 +1494,8 @@ def host_scenes(kind, n_infers, n, seed, nice=0, out=None):
         cols = [eval_scene(cfg, rng) for _ in range(n)]
     elif kind == "train":
         cols = synthetic_train_scenes(cfg, n, seed)
+    elif kind == "kitti360":
+        cols = kitti360_scenes(n_infers, seed)
     else:
         cols = [unaugmented_scene(cfg, seed)]
     if out is None:
@@ -1532,11 +1583,11 @@ def counting_forward(net):
     return CountingForward()
 
 
-def bench_phase(cfg, scans, net, label):
+def bench_phase(cfg, scans, net, label, modes=("adaptive", "fixed", "fixed", "adaptive")):
     """``scripts_torch/bench.py``'s pipelined protocol on ``bench.py``'s
     scans through :class:`AdaptiveForward` and through the fixed 352 box, in
-    turns (adaptive, fixed, fixed, adaptive), after one warm-up forward per
-    candidate box.  Prints each scan's box, scans/s and device ms per scan
+    turns (``modes``: adaptive, fixed, fixed, adaptive by default), after
+    one warm-up forward per candidate box.  Prints each scan's box, scans/s and device ms per scan
     of each run, the peak memory and the launches per forward of each box,
     which must reach :func:`forward_launch_floor`.  The counts are set to 0
     just before the warm-up and read after the last run.  Returns
@@ -1555,7 +1606,7 @@ def bench_phase(cfg, scans, net, label):
     fwd.warmup(inps[0])
     res = {}
     torch.cuda.reset_peak_memory_stats(dev)
-    for mode in ("adaptive", "fixed", "fixed", "adaptive"):
+    for mode in modes:
         bx = boxes if mode == "adaptive" else [fwd.cands[-1]] * len(boxes)
         r = bench.measure(fwd, inps, bx, iters=2)
         res.setdefault(mode, []).append(r)
@@ -1574,8 +1625,7 @@ def bench_phase(cfg, scans, net, label):
              for k in floor if fwd.per_box[b][k] < floor[k] * fwd.calls[b]}
     if short:
         raise AssertionError(f"{label}: kernels launched too rarely per forward: {short}")
-    for mode in ("adaptive", "fixed"):
-        rs = res[mode]
+    for mode, rs in res.items():
         print(f"{label} {mode} (both runs): scans/s {[round(r['scans_per_sec'], 4) for r in rs]}, "
               f"device ms/scan {[round(statistics.mean(r['device_ms']), 3) for r in rs]}",
               flush=True)
@@ -1654,16 +1704,14 @@ def two_boxes_check(cfg, net, scan, small):
               f"at every scale and subnet; extracted s1 logits max|d| {l_err:.4g}", flush=True)
 
 
-def eval_cli_phase():
-    """``scripts_torch/eval.py`` ``main()`` on the card: the fake val scan of
-    ``tests/test_eval_script.py`` in a temporary directory, the
+def start_eval_cli(tmp):
+    """``scripts_torch/eval.py`` on the card in a subprocess: the fake val
+    scan of ``tests/test_eval_script.py`` written under ``tmp``, the
     ``flagship_narrow`` preset (full widths) and a released-format
-    ``--torch_ckpt`` from ``synthetic_reference_state_dict`` at those widths
-    and the scan's 8 input features.  Every table must print."""
-    import contextlib as cl
+    ``--torch_ckpt`` from ``synthetic_reference_state_dict`` at those
+    widths and the scan's 8 input features.  Returns the process and its
+    output files for :func:`finish_eval_cli`."""
     import importlib.util
-    import io
-    import tempfile
 
     from pasco_torch.inference.evaluate import eval_config
     from pasco_torch.training.convert_torch import synthetic_reference_state_dict
@@ -1673,27 +1721,30 @@ def eval_cli_phase():
         "fake_val_scan", os.path.join(here, "tests", "test_eval_script.py"))
     fake = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fake)
-    cli = _script("eval")
     m = eval_config("flagship_narrow", 1).model
-    with tempfile.TemporaryDirectory() as tmp:
-        fake._write_fake_val_scan(tmp)
-        sd = synthetic_reference_state_dict(
-            np.random.RandomState(3), n_infers=1, f=m.f, n_classes=m.n_classes, in_channels=8,
-            hidden_dim=m.transformer.hidden_dim, num_queries=m.transformer.num_queries,
-            dim_feedforward=m.transformer.dim_feedforward)
-        ckpt = os.path.join(tmp, "pasco_single.ckpt")
-        torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}},
-                   ckpt)
-        argv, buf = sys.argv, io.StringIO()
-        sys.argv = ["eval.py", "--dataset_root", tmp, "--torch_ckpt", ckpt, "--n_infers", "1",
-                    "--limit_batches", "1", "--config", "flagship_narrow"]
-        try:
-            with cl.redirect_stdout(buf):
-                cli.main()
-        finally:
-            sys.argv = argv
-    out = buf.getvalue()
+    fake._write_fake_val_scan(tmp)
+    sd = synthetic_reference_state_dict(
+        np.random.RandomState(3), n_infers=1, f=m.f, n_classes=m.n_classes, in_channels=8,
+        hidden_dim=m.transformer.hidden_dim, num_queries=m.transformer.num_queries,
+        dim_feedforward=m.transformer.dim_feedforward)
+    ckpt = os.path.join(tmp, "pasco_single.ckpt")
+    torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}},
+               ckpt)
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]    # no pipe to fill unread
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "scripts_torch", "eval.py"), "--dataset_root", tmp,
+         "--torch_ckpt", ckpt, "--n_infers", "1", "--limit_batches", "1", "--config",
+         "flagship_narrow"], stdout=logs[0], stderr=logs[1], text=True)
+    return proc, logs
+
+
+def finish_eval_cli(proc, logs):
+    """Wait for :func:`start_eval_cli`'s process; it must exit 0 and print
+    every table."""
+    out, err = _wait_logged(proc, logs)
     print(out, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"scripts_torch/eval.py exit {proc.returncode}: {err[-2000:]}")
     for want in ("mIoU", "Prec", "PQ", "ins ECE", "ssc ECE ne", "inference time:",
                  "ensemble time:", "subnet 0", "ensemble", "per-class PQ"):
         if want not in out:
@@ -1702,20 +1753,66 @@ def eval_cli_phase():
           flush=True)
 
 
-def scene_inference_phase(cfg, net, scan):
-    """``run_scene_inference`` on one scan (S + 1 outputs: the subnets,
-    then the ensemble) and the ``Evaluator`` against the scan's
-    labels; the summary's numbers must be finite (at random init they mean
-    nothing)."""
-    from pasco_torch.inference.pipeline import Evaluator, run_scene_inference
+def _to_cpu(obj):
+    """``obj`` (tensors in dicts, named tuples, lists) with every tensor
+    copied to the host."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to_cpu(v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
 
+
+def start_scene_inference(pool, tmp, cfg, forward_fn, scan, name):
+    """``run_scene_inference`` on one scan, split where the card's part
+    ends: here the forward (``forward_fn(inp)``, timed to a synchronise),
+    whose output is copied to the host and saved under ``tmp``; in a
+    worker process of ``pool`` the rest, the MIMO ensembling and panoptic
+    assembly on the host (``run_scene_inference`` with that output as its
+    forward) and the ``Evaluator`` (:func:`scene_inference_lines`), so
+    that this host work overlaps the card phases that follow.  Only what
+    ``run_scene_inference`` reads is saved: scale 1's grids and logits and
+    the predictor's last layer (not its auxiliary layers).  Returns the
+    worker's future."""
     col, inp = scan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = forward_fn(inp)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    out = out._replace(sem_grids={1: out.sem_grids[1]}, sem_logits={1: out.sem_logits[1]},
+                       panop_grids={1: out.panop_grids[1]},
+                       predictor=out.predictor._replace(aux=[]))
+    path = os.path.join(tmp, f"scene_inference_{name}.pt")
+    torch.save((cfg, col, _to_cpu(out)), path)
+    return pool.submit(scene_inference_lines, path, forward_s)
+
+
+def scene_inference_lines(path, forward_s):
+    """The host part of :func:`start_scene_inference` on the saved ``(cfg,
+    scan, forward output)`` at ``path``: ``run_scene_inference`` (S + 1
+    outputs: the subnets, then the ensemble) and the ``Evaluator``
+    against the scan's labels, whose numbers must be finite (at random
+    init they mean nothing), at the lowest priority, so that it takes the
+    cores the card's phases leave idle.  Returns the lines to print."""
+    from pasco_torch.inference.pipeline import Evaluator, run_scene_inference
+    from pasco_torch.models.unet import scene_to_model_input
+
+    os.nice(19)
+    torch.set_num_threads(1)
+    cfg, col, out = torch.load(path, weights_only=False)
     S = cfg.model.n_infers
-    res = run_scene_inference(net, inp, col, cfg)
+    res = run_scene_inference(lambda _inp: out, scene_to_model_input(col, "cpu"), col, cfg)
     n_seg = [len(o["segments_info"]) for o in res["outputs"]]
-    print(f"run_scene_inference (n_infers={S}): {len(n_seg)} outputs, {n_seg} panoptic "
-          f"segments, forward {res['inference_time']:.3f} s, ensemble "
-          f"{res['ensemble_time']:.3f} s", flush=True)
+    lines = [f"run_scene_inference (n_infers={S}): {len(n_seg)} outputs, {n_seg} panoptic "
+             f"segments, forward {forward_s:.3f} s (on the card), ensemble "
+             f"{res['ensemble_time']:.3f} s (in a worker at nice 19, beside the card's "
+             f"phases)"]
     if len(res["outputs"]) != S + 1:
         raise AssertionError(f"run_scene_inference: {len(res['outputs'])} outputs at S={S}")
     ev = Evaluator(cfg)
@@ -1726,20 +1823,506 @@ def scene_inference_phase(cfg, net, scan):
     for name, s in zip(names, summary):
         vals = {"PQ": s["pq_all"]["pq"], "SSC mIoU": s["ssc"]["iou_ssc_mean"],
                 "ECE": s["ssc"]["nonempty_ece"], "instance ECE": s["uncertainty"]["ins_ece"]}
-        print(f"evaluator {name}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()),
-              flush=True)
+        lines.append(f"evaluator {name} (n_infers={S}): "
+                     + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()))
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"evaluator {name}: non-finite summary {vals}")
-    print(f"evaluator: {time.perf_counter() - t0:.3f} s for {len(summary)} outputs",
-          flush=True)
+    lines.append(f"evaluator (n_infers={S}): {time.perf_counter() - t0:.3f} s for "
+                 f"{len(summary)} outputs")
+    return lines
 
 
-def run_phases(jobs, dev, lap):
+# ---------------------------------------------------------------------------
+# data parallelism on the one card, and the KITTI-360 preset
+# ---------------------------------------------------------------------------
+
+
+def _card_settings():
+    """The numerics every process of this run uses: no TF32 outside the
+    kernels that ask for it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _cut_all_reduce_sum(t, group):
+    """The BatchNorm reduction of a plain ``dist.all_reduce``: the sum over
+    the ranks forward, this rank's own cotangent backward (the other
+    ranks' losses no longer reach the statistics' gradient)."""
+    import torch.distributed as dist
+
+    total = t.detach().clone()
+    dist.all_reduce(total, group=group)
+    return t + (total - t.detach())
+
+
+def _step_record(state, logs, n):
+    """What a train step left, on the card: the logs, the mean gradient
+    (``.grad / n``), the parameters and the running statistics."""
+    from pasco_torch.models.norm import BatchNorm
+
+    params = dict(state.net.named_parameters())
+    return {"logs": {k: float(v) for k, v in logs.items()},
+            "grads": {k: (p.grad / n).float() for k, p in params.items() if p.grad is not None},
+            "params": {k: p.detach().float().clone() for k, p in params.items()},
+            "stats": {f"{k}.{b}": getattr(m, b).float().clone()
+                      for k, m in state.net.named_modules() if isinstance(m, BatchNorm)
+                      for b in ("mean", "var")}}
+
+
+def _fresh_states(cfg, dev):
+    """A function that returns a fresh ``loop.new_train_state(cfg, dev,
+    seed=0)``: the seeded init is built once (its draws take seconds at
+    full width) and each call deep-copies it."""
+    import copy
+
+    from pasco_torch.training import loop
+
+    state0 = loop.new_train_state(cfg, dev, seed=0)
+    return lambda: copy.deepcopy(state0)
+
+
+def _single_card_steps(cfg, col, dev, fresh, n=2):
+    """``n`` single-card ``train_step``s from the seeded init (``fresh()``,
+    :func:`_fresh_states`) on ``col`` (no group; the repeats show the
+    card's run-to-run noise); their records and host-clock times."""
+    from pasco_torch.models.unet import scene_to_model_input
+    from pasco_torch.training import loop
+    from pasco_torch.training import step as tstep
+
+    lw, cw = loop.loss_weights(cfg, None, dev)
+    inp, tgt = scene_to_model_input(col, dev), tstep.targets_to_device(col.targets, dev)
+    recs = []
+    for _ in range(n):
+        state = fresh()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logs = tstep.train_step(state, inp, tgt, lw, cw, loop.train_config(cfg), seed=0)
+        torch.cuda.synchronize(dev)
+        recs.append(dict(_step_record(state, logs, 1), step_s=time.perf_counter() - t0))
+        del state, logs
+    return recs
+
+
+def _accumulated_step(cfg, cols, dev, fresh):
+    """One single-card step on the mean gradient of ``cols``: ``grad_step``
+    on each (every one drawing from ``step_generator(0, 0)``, the shared
+    draws of ``fold_axis_rng=False``), then ``apply_grads(state,
+    len(cols))``, from the seeded init (``fresh()``); its record (the logs' mean and
+    ``grad_norm``, the mean gradient, the parameters), and under ``first``
+    the gradient of ``cols[0]`` alone."""
+    from pasco_torch.models.unet import scene_to_model_input
+    from pasco_torch.training import loop
+    from pasco_torch.training import step as tstep
+
+    lw, cw = loop.loss_weights(cfg, None, dev)
+    state = fresh()
+    tstep.zero_grads(state)
+    logs, first = [], None
+    for c in cols:
+        logs.append(tstep.grad_step(state, scene_to_model_input(c, dev),
+                                    tstep.targets_to_device(c.targets, dev), lw, cw,
+                                    loop.train_config(cfg), tstep.step_generator(0, 0, dev)))
+        if first is None:
+            first = {k: torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                     else p.grad.float().clone() for k, p in state.net.named_parameters()}
+    mean = {k: sum(lg[k].float() for lg in logs) * (1.0 / len(cols)) for k in logs[0]}
+    mean["grad_norm"] = tstep.apply_grads(state, len(cols))
+    return dict(_step_record(state, mean, len(cols)), first=first)
+
+
+def _noise_rel(ref, rep):
+    """The relative term of the bounds of :func:`_held`: 0.05
+    (``narrow_step_check``'s) where the repeat of the single-card step
+    differs from it anywhere (kernels that are not deterministic), else
+    1e-5, the f32 rounding of a reduction that adds in another order: far
+    below what a missing or wrong reduction moves."""
+    same = ref["logs"] == rep["logs"] and all(
+        torch.equal(rep[part][k], v) for part in ("grads", "params", "stats")
+        for k, v in ref[part].items())
+    return 1e-5 if same else 0.05
+
+
+def _held(label, got, ref, rep, rel):
+    """``got`` against the single-card step ``ref``, whose repeat ``rep``
+    shows the card's run-to-run noise: per tensor, ``|got - ref| <= 1.5 *
+    |rep - ref| + rel * |ref|`` in norm (``narrow_step_check``'s rule with
+    the repeat in place of the plain step, ``rel`` from
+    :func:`_noise_rel`), and the median over tensors of the left side at
+    most the right side's.  Prints the max|d| beside the repeat's; returns
+    the names over their bound."""
+    over, err, noise, worst, rep_max = [], [], [], 0.0, 0.0
+    for k, r in ref.items():
+        e = (got[k] - r).norm().item()
+        n = 1.5 * (rep[k] - r).norm().item() + rel * r.norm().item()
+        worst = max(worst, (got[k] - r).abs().max().item())
+        rep_max = max(rep_max, (rep[k] - r).abs().max().item())
+        err.append(e)
+        noise.append(n)
+        if e > n:
+            over.append(k)
+    if statistics.median(err) > statistics.median(noise):
+        over.append("<median>")
+    print(f"  {label}: max|d| {worst:.6g} (the repeat's: {rep_max:.6g}); "
+          f"{len(over)} of {len(ref)} over 1.5 * |repeat - ref| + {rel:g} * |ref|", flush=True)
+    return over
+
+
+def _hold_step(label, got, ref, rep, rel, parts=("grads", "params", "stats")):
+    """Every check of a step record against the single-card step's: each
+    loss term within ``rel * (|ref| + 1)`` (``narrow_step_check``'s
+    ``5e-2 * |ref| + 5e-2`` at ``rel`` 0.05), and ``parts`` by
+    :func:`_held`.  Returns the names over their bound."""
+    over = []
+    for k, v in ref["logs"].items():
+        d, bound = abs(got["logs"][k] - v), rel * (abs(v) + 1)
+        if k in ("total_loss", "grad_norm"):
+            print(f"  {label} {k}: {got['logs'][k]:.9g} vs {v:.9g} (|d| {d:.3g}, repeat "
+                  f"|d| {abs(rep['logs'][k] - v):.3g}, bound {bound:.3g})", flush=True)
+        if d > bound:
+            over.append(k)
+    for part in parts:
+        over += _held(f"{label} {part}", got[part], ref[part], rep[part], rel)
+    return over
+
+
+def dp_rank(rank, world, cfg, scenes_path):
+    """One rank of :func:`dp_phase` at ``cfg`` on ``cuda:0`` (gloo), from the
+    pickled ``(copy_scene, scenes)`` at ``scenes_path``: three
+    data-parallel steps, each from the seeded init (replicated from rank 0
+    before the first): on its copy of ``copy_scene`` with SyncBN and shared
+    draws, first with the cut BatchNorm reduction
+    (:func:`_cut_all_reduce_sum`; the process's first step, which also
+    warms it up), then with the package's; then without SyncBN on its own
+    scene of ``scenes`` (one per rank, shared draws); then
+    ``dp_eval_step`` of ``scenes``, one per rank.  Rank 0 then holds,
+    alone, the copies' step against two single-card ``train_step``s
+    (:func:`_hold_step`; the cut step must miss the gradients' bound),
+    the distinct scenes' step against their accumulation on one card
+    (:func:`_accumulated_step`: without the gradient's reduction each rank
+    would keep its own scene's), and each scene's counts taken alone.
+    Returns the times, the peak memory, the launches of the package's
+    SyncBN step, the counts, the parameters' sums (to hold the ranks
+    against each other) and rank 0's verdicts."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from pasco_torch import kernels
+    from pasco_torch.models import norm
+    from pasco_torch.models.unet import build_net, scene_to_model_input
+    from pasco_torch.parallel import mesh
+    from pasco_torch.training import loop
+
+    t_rank = time.perf_counter()
+    _card_settings()
+    dev = torch.device("cuda", 0)
+    with open(scenes_path, "rb") as fh:
+        copy_scene, scenes = pickle.load(fh)
+    group = dist.group.WORLD
+    lw, cw = loop.loss_weights(cfg, None, dev)
+    out, recs = {}, {}
+    t0 = time.perf_counter()
+    fresh = _fresh_states(cfg, dev)
+    torch.cuda.synchronize(dev)
+    out["build_s"] = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated(dev)     # the pristine state: not the step's
+    for name in ("cut", "dp", "distinct"):
+        state = fresh()
+        if name == "cut":
+            t0 = time.perf_counter()
+            mesh.replicate_to_group(state, group)
+            torch.cuda.synchronize(dev)
+            out["replicate_s"] = time.perf_counter() - t0
+        if name != "distinct":
+            norm.set_process_group(state.net, group)
+        mine = mesh.shard_scenes(scenes, rank, world) if name == "distinct" else [copy_scene]
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        saved = norm.all_reduce_sum
+        norm.all_reduce_sum = _cut_all_reduce_sum if name == "cut" else saved
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            logs = mesh.dp_train_step(state, mine, 0, group=group, labelweights=lw,
+                                      class_weight=cw, cfg=loop.train_config(cfg),
+                                      fold_axis_rng=False)
+            torch.cuda.synchronize(dev)
+        finally:
+            norm.all_reduce_sum = saved
+        out[name] = dict(step_s=time.perf_counter() - t0, launches=dict(kernels.LAUNCHES),
+                         peak_gb=(torch.cuda.max_memory_allocated(dev) - held) / 1e9)
+        recs[name] = _step_record(state, logs, world)
+        out[name]["sums"] = torch.stack([p.double().sum() for p in
+                                         recs[name]["params"].values()]).cpu()
+        del state
+    net = build_net(loop.train_config(cfg), dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    C = cfg.model.n_classes
+    t0 = time.perf_counter()
+    out["eval"] = torch.stack(mesh.dp_eval_step(
+        net, mesh.shard_scenes(scenes, rank, world), group=group, n_classes=C)).cpu()
+    out["eval_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_rank
+    if rank:
+        return out
+    with torch.no_grad():
+        alone = []
+        for sc in scenes:
+            inp = scene_to_model_input(sc, dev)
+            gt = torch.as_tensor(sc.targets.semantic_dense[0]).to(dev)
+            alone.append(torch.stack(mesh.ssc_counts_from_output(
+                net(inp), gt, inp.subnet_min[0], C)).cpu())
+    out["alone"] = alone
+    del net
+    torch.cuda.empty_cache()
+    ref, rep = _single_card_steps(cfg, copy_scene, dev, fresh)
+    out["single_s"] = [ref["step_s"], rep["step_s"]]
+    rel = out["rel"] = _noise_rel(ref, rep)
+    out["over"] = _hold_step(f"dp ({world} ranks, gloo)", recs["dp"], ref, rep, rel)
+    out["cut_over"] = _held("dp with the cut BatchNorm reduction: grads",
+                            recs["cut"]["grads"], ref["grads"], rep["grads"], 0.05)
+    grad_norm = {k: r["logs"]["grad_norm"] for k, r in
+                 (("single", ref), ("dp", recs["dp"]), ("cut", recs["cut"]))}
+    del ref, rep
+    acc = _accumulated_step(cfg, scenes, dev, fresh)
+    # the running statistics are left out: the ranks average their own
+    # (as the reference's pmean), where accumulation folds one scene's in
+    # after the other's
+    out["distinct_over"] = _hold_step(
+        f"dp ({world} ranks, gloo, no SyncBN) on {world} scenes vs their accumulation",
+        recs["distinct"], acc, acc, rel, parts=("grads", "params"))
+    # the gradient's reduction is seen: rank 0's own scene's gradient,
+    # which it would keep without it, misses the mean even at 0.05
+    out["own_over"] = _held("dp without the gradient's reduction (rank 0's own scene): grads",
+                            acc["first"], acc["grads"], acc["grads"], 0.05)
+    grad_norm["distinct"], grad_norm["accumulated"] = (
+        recs["distinct"]["logs"]["grad_norm"], acc["logs"]["grad_norm"])
+    out["grad_norm"] = grad_norm
+    out["checks_s"] = time.perf_counter() - t_rank - out["wall_s"]
+    return out
+
+
+def dp_phase(dev, train_cols, lap):
+    """Data parallelism at the flagship's full width (``PaSCoConfig()``,
+    f = 64, n_infers 1, the 256x256x32 train box) on the one card:
+
+    1. two ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+       device), a file rendezvous (:func:`~pasco_torch.parallel.mesh.
+       spawn_ranks`), :func:`dp_rank`; this process holds no net while
+       they run.  On two copies of the first train scene with shared draws
+       and SyncBN, one ``dp_train_step`` must give the single-card step's
+       logs, ``grad_norm``, gradients, parameters and running statistics
+       (:func:`_hold_step`; bit-identical where the kernels are
+       deterministic: the bound's relative term is then 1e-5,
+       :func:`_noise_rel`), both ranks the same parameters; with the cut
+       BatchNorm reduction the same step must miss the gradients' bound
+       (the statistics' gradient path is live); on the two train scenes,
+       one per rank, without SyncBN, the step must give the mean gradient
+       and update of their accumulation on one card, which rank 0's own
+       scene's gradient must miss (the gradients' reduction is live);
+       ``dp_eval_step`` on the same two scenes must give the sum of each
+       scene's counts taken alone;
+    2. a one-rank NCCL group in this process: one ``dp_train_step`` with
+       SyncBN over it against a single-card ``train_step`` (the same rules,
+       the step itself as its repeat), then the group destroyed.
+
+    Prints each step's time and peak memory per rank against the
+    single-card step's.  Returns rank 0's launches of its SyncBN step."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.models import norm
+    from pasco_torch.parallel import mesh
+    from pasco_torch.training import loop
+
+    cfg = PaSCoConfig()
+    col = train_cols[0]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        path = os.path.join(tmp, "scenes.pkl")
+        with open(path, "wb") as fh:
+            pickle.dump((col, train_cols[:DP_WORLD]), fh, protocol=pickle.HIGHEST_PROTOCOL)
+        t0 = time.perf_counter()
+        ranks = mesh.spawn_ranks(dp_rank, DP_WORLD, cfg, path)
+        spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        print(f"dp rank: cut step {r['cut']['step_s']:.3f} s (the rank's first), step "
+              f"{r['dp']['step_s']:.3f} s, peak {r['dp']['peak_gb']:.3f} GB; step without "
+              f"SyncBN on its own scene {r['distinct']['step_s']:.3f} s, peak "
+              f"{r['distinct']['peak_gb']:.3f} GB; eval {r['eval_s']:.3f} s; launches "
+              f"{r['dp']['launches']}", flush=True)
+    print(f"dp: single-card step {r0['single_s'][0]:.3f} / {r0['single_s'][1]:.3f} s (rank 0, "
+          f"alone); grad_norm {r0['grad_norm']}", flush=True)
+    print(f"dp: {spawn_s:.1f} s from spawning the ranks to their end; rank 0 "
+          f"{r0['wall_s']:.1f} s in its function before its checks (the seeded state's build "
+          f"{r0['build_s']:.1f} s, the replication {r0['replicate_s']:.2f} s), then "
+          f"{r0['checks_s']:.1f} s of checks alone (the counts alone, 3 single-card steps, "
+          f"the comparisons)", flush=True)
+    if not all(torch.equal(r[k]["sums"], r0[k]["sums"]) for r in ranks
+               for k in ("cut", "dp", "distinct")):
+        raise AssertionError("dp: the ranks' parameters differ after the step")
+    if r0["over"]:
+        raise AssertionError(f"dp: the step differs from the single-card step: "
+                             f"{r0['over'][:8]}")
+    if not r0["cut_over"]:
+        raise AssertionError("dp: the cut reduction met the bound; the statistics' gradient "
+                             "is not seen")
+    print(f"dp: the cut reduction breaks the gradient bound on {len(r0['cut_over'])} "
+          f"tensors", flush=True)
+    if r0["distinct_over"]:
+        raise AssertionError(f"dp on distinct scenes: the step differs from their "
+                             f"accumulation on one card: {r0['distinct_over'][:8]}")
+    if not r0["own_over"]:
+        raise AssertionError("dp: rank 0's own gradient met the mean's bound; the gradient's "
+                             "reduction is not seen")
+    print(f"dp on distinct scenes: the step is their accumulation on one card (bound "
+          f"{r0['rel']:g} * |ref|); rank 0's own gradient misses it on "
+          f"{len(r0['own_over'])} tensors", flush=True)
+    want = sum(r0["alone"])
+    if not all(torch.equal(r["eval"], want) for r in ranks) or want.sum() <= 0:
+        raise AssertionError(f"dp_eval_step: {r0['eval']} vs the scenes alone {want}")
+    print(f"dp_eval_step over {DP_WORLD} ranks: tp/fp/fn totals {want.sum(1).tolist()} = the "
+          f"sum of each scene's counts alone", flush=True)
+    lap("data parallelism: two ranks on the card (gloo)")
+
+    lw, cw = loop.loss_weights(cfg, None, dev)
+    fresh = _fresh_states(cfg, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        group = mesh.make_group("nccl", "file://" + os.path.join(tmp, "rdv"), rank=0,
+                                world_size=1)
+        try:
+            state = mesh.replicate_to_group(fresh(), group)
+            norm.set_process_group(state.net, group)
+            t0 = time.perf_counter()
+            logs = mesh.dp_train_step(state, [col], 0, group=group, labelweights=lw,
+                                      class_weight=cw, cfg=loop.train_config(cfg),
+                                      fold_axis_rng=False)
+            torch.cuda.synchronize(dev)
+            step_s = time.perf_counter() - t0
+            got = _step_record(state, logs, 1)
+            del state, logs
+        finally:
+            dist.destroy_process_group()
+    (ref,) = _single_card_steps(cfg, col, dev, fresh, n=1)
+    over = _hold_step("dp (1 rank, NCCL)", got, ref, ref, r0["rel"])
+    del got, ref, fresh
+    torch.cuda.empty_cache()
+    if over:
+        raise AssertionError(f"dp over NCCL: the step differs from the single-card step: "
+                             f"{over[:8]}")
+    print(f"dp: a one-rank NCCL group took a step in {step_s:.3f} s", flush=True)
+    lap("data parallelism: one-rank NCCL group")
+    return r0["dp"]["launches"]
+
+
+def kitti360_scenes(n_infers, seed):
+    """``kitti360_config(n_infers)``'s synthetic data (8 raw channels, 19
+    classes): one eval scan (``n_infers`` augmented views of one scene, as
+    :func:`eval_scene`) and one train scene (a distinct scan per subnet,
+    collated at the train box)."""
+    from pasco_torch.core.config import kitti360_config
+    from pasco_torch.data.semantic_kitti.collate import collate
+    from pasco_torch.data.semantic_kitti.dataset import process_scene
+    from pasco_torch.data.synthetic import make_scene
+    from pasco_torch.training.loop import train_config
+
+    cfg = kitti360_config(n_infers)
+    rng = np.random.RandomState(seed)
+    scan = eval_scene(cfg, rng)
+    views = [process_scene(preset_scene(make_scene(
+        rng, scene_size=cfg.scene.scene_size, n_points=min(cfg.capacity.num_points, 120000),
+        point_feat_dim=cfg.model.in_channels - 6), cfg), None, rng,
+        n_classes=cfg.model.n_classes, thing_ids=cfg.thing_ids) for _ in range(n_infers)]
+    return [scan, collate(views, train_config(cfg), rng=rng)]
+
+
+def kitti360_phase(dev, cols, lap, infer):
+    """``kitti360_config(n_infers=2)`` at full width on synthetic 2-view
+    scans with 8 raw channels: one forward through ``AdaptiveForward``
+    after a warm-up (finite outputs of the expected shapes, 19 + 1 query
+    classes, every kernel launched exactly ``forward_launch_floor(2)``
+    times), ``run_scene_inference`` and the ``Evaluator`` (19 classes,
+    things 1..6) on the scan through ``infer`` (:func:`start_scene_inference`:
+    its host part overlaps what follows), then one panoptic train step at
+    the train box with finite losses.  Returns the launches of the forward."""
+    from pasco_torch import kernels
+    from pasco_torch.core.config import kitti360_config
+    from pasco_torch.data.kitti360.params import CLASS_FREQUENCIES
+    from pasco_torch.inference.dispatch import AdaptiveForward, candidate_boxes, pick_box
+    from pasco_torch.models.unet import build_net, scene_to_model_input
+    from pasco_torch.training import loop
+    from pasco_torch.training import step as tstep
+
+    cfg = kitti360_config(n_infers=KITTI360_S)
+    scan, train_col = cols
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    lw, cw = loop.loss_weights(cfg, CLASS_FREQUENCIES, dev)
+    fwd = AdaptiveForward(net, lw)
+    inp = scene_to_model_input(scan, dev)
+    box = pick_box(candidate_boxes(cfg), scan.global_min, scan.global_max)
+    with torch.no_grad():
+        check_output(cfg, fwd(inp, box))                     # warm-up
+        torch.cuda.synchronize(dev)
+        kernels.reset_launches()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fwd(inp, box)
+        b.record()
+        b.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        kept, sub = check_output(cfg, out)
+    floor = forward_launch_floor(KITTI360_S)
+    print(f"kitti360 forward (n_infers={KITTI360_S}, box {box}): {a.elapsed_time(b):.3f} ms "
+          f"between events, query classes {out.predictor.query_logits.shape[-1]}, kept {kept}, "
+          f"kept per subnet {sub}, launches {launches}", flush=True)
+    if {k: launches.get(k, 0) for k in floor} != floor:
+        raise AssertionError(f"kitti360 forward: launches {launches}, want {floor}")
+    if out.predictor.query_logits.shape[-1] != 19 + 1:
+        raise AssertionError("kitti360 forward: not 19 + 1 query classes")
+    with torch.no_grad():
+        calls = profile_call(lambda: fwd(inp, box), reps=3)
+    groups = {k: device_ms(calls, f"{k}_kernel") for k in
+              ("masked_conv3", "down2", "up_preamble", "extract")}
+    print(f"kitti360 forward device ms: {device_ms(calls):.3f} in all; by kernel "
+          f"{ {k: round(v, 4) for k, v in groups.items()} }", flush=True)
+    infer(cfg, lambda i: fwd(i, box), (scan, inp), "kitti360")
+    lap("kitti360: forward")
+    del net, fwd, out
+    torch.cuda.empty_cache()
+    state = loop.new_train_state(cfg, dev, seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logs = tstep.train_step(state, scene_to_model_input(train_col, dev),
+                            tstep.targets_to_device(train_col.targets, dev), lw, cw,
+                            loop.train_config(cfg), seed=0)
+    vals = {k: float(v) for k, v in logs.items()}
+    step_s = time.perf_counter() - t0
+    print(f"kitti360 train step (n_infers={KITTI360_S}, panoptic): {step_s:.3f} s (the "
+          f"first at these shapes), peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB, "
+          f"total_loss {vals['total_loss']:.6g}, grad_norm {vals['grad_norm']:.6g}, "
+          f"{len(vals)} logs", flush=True)
+    if not all(np.isfinite(v) for v in vals.values()) or not vals["grad_norm"] > 0:
+        raise AssertionError(f"kitti360 train step: {vals}")
+    del state
+    torch.cuda.empty_cache()
+    lap("kitti360: train step")
+    return launches
+
+
+def run_phases(jobs, dev, lap, pool, tmp):
     """Every phase after the build (see the module docstring), on the
     scenes of ``jobs`` (futures of :func:`host_scenes`).  Returns the
     kernel rows at 352, the rows of the smaller boxes, the launches by box
     of the n_infers=1 bench run, those of the MIMO forward, the training
-    conv's row and the launches of the n_infers 3 trainer."""
+    conv's row, the launches of the n_infers 3 trainer and the launches
+    of every path by name (the data-parallel step's and the KITTI-360
+    forward's among them).  The host part of each ``run_scene_inference``
+    runs in a worker of ``pool`` (:func:`start_scene_inference`, its
+    files in ``tmp``), and its lines are printed after the last phase."""
     from pasco_torch.core.config import PaSCoConfig
     from pasco_torch.models.unet import build_net, scene_to_model_input
 
@@ -1758,6 +2341,11 @@ def run_phases(jobs, dev, lap):
     def scans_of(name):
         return [(col, scene_to_model_input(col, dev)) for col in cols_of(name)]
 
+    inferences = []
+
+    def infer(cfg, forward_fn, scan, name):
+        inferences.append((name, start_scene_inference(pool, tmp, cfg, forward_fn, scan, name)))
+
     cfg = PaSCoConfig()
     # bench.py's six scans (RandomState(0)); the first N_SCANS drive the
     # forward phase
@@ -1771,7 +2359,7 @@ def run_phases(jobs, dev, lap):
     net.reset_parameters(torch.Generator().manual_seed(0))
     forward_phase(cfg, scans[:N_SCANS], net)
     rows.append(featurizer_phase(cfg, scans[0][1], net))
-    scene_inference_phase(cfg, net, scans[0])
+    infer(cfg, net, scans[0], "n_infers_1")
     lap("forward, n_infers 1")
     mc_dropout_phase(dev, scans[0][1])
     lap("MC dropout")
@@ -1798,14 +2386,14 @@ def run_phases(jobs, dev, lap):
     net3.reset_parameters(torch.Generator().manual_seed(0))
     scans3 = scans_of("scans3")
     launches = forward_phase(cfg3, scans3[:N_SCANS], net3, "MIMO forward")
-    scene_inference_phase(cfg3, net3, scans3[0])
+    infer(cfg3, net3, scans3[0], "n_infers_3")
     lap("forward, n_infers 3")
-    bench_phase(cfg3, scans3, net3, "bench n_infers=3")
+    # one run: every n_infers=3 scan takes the 352 box, so the fixed runs
+    # would repeat the adaptive one
+    bench_phase(cfg3, scans3, net3, "bench n_infers=3", modes=("adaptive",))
     lap("bench protocol, n_infers 3")
     del net3, scans3
     torch.cuda.empty_cache()
-    eval_cli_phase()
-    lap("eval CLI")
 
     dx_row = train_conv_phase(cfg, cols_of("train")[0], gen, dev)
     narrow_step_check(dev, dropout=0.2)
@@ -1814,9 +2402,27 @@ def run_phases(jobs, dev, lap):
     lap("trainer, n_infers 1")
     train_launches = trainer_mimo_phase(dev)
     lap("trainer, n_infers 3")
-    cli_phase(dev, first)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as eval_tmp:
+        proc, logs = start_eval_cli(eval_tmp)    # beside the CLI phase, on the card too
+        try:
+            cli_phase(dev, first)
+        except BaseException:
+            proc.kill()
+            _wait_logged(proc, logs)
+            raise
+        finish_eval_cli(proc, logs)
     lap("CLIs")
-    return rows, box_rows, per_box, launches, dx_row, train_launches
+    by_path = {"mimo_forward": launches, "trainer_n_infers_3": train_launches}
+    by_path["kitti360_s2_forward"] = kitti360_phase(dev, cols_of("kitti360"), lap, infer)
+    by_path["dp_step_rank0"] = dp_phase(dev, cols_of("train"), lap)
+    for name, fut in inferences:
+        t0 = time.perf_counter()
+        lines = fut.result()
+        print("\n".join(lines), flush=True)
+        print(f"run_scene_inference and the Evaluator ({name}): waited "
+              f"{time.perf_counter() - t0:.1f} s for the worker", flush=True)
+    lap("run_scene_inference and the Evaluator at n_infers 1, 3 and 2 (the rest of them)")
+    return rows, box_rows, per_box, launches, dx_row, train_launches, by_path
 
 
 def main():
@@ -1845,7 +2451,8 @@ def main():
                 for name, args in (
             ("scans3", ("eval", MIMO_S, BENCH_SCANS, 0)),
             ("box256", ("unaugmented", 1, 1, 3)),
-            ("train", ("train", 1, 1, 0)))}
+            ("train", ("train", 1, 2, 0)),
+            ("kitti360", ("kitti360", KITTI360_S, 1, 0)))}
         t0 = time.perf_counter()
         with cf.ThreadPoolExecutor(1) as build_pool:
             build = build_pool.submit(kernels.lib)     # nvcc in subprocesses
@@ -1861,8 +2468,8 @@ def main():
             print(f"phase {name}: {now - t_lap[0]:.1f} s", flush=True)
             t_lap[0] = now
 
-        rows, box_rows, per_box, launches, dx_row, train_launches = run_phases(
-            jobs, dev, lap)
+        rows, box_rows, per_box, launches, dx_row, train_launches, by_path = run_phases(
+            jobs, dev, lap, pool, tmp)
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1871,6 +2478,8 @@ def main():
         r.setdefault("launches", launches[r["name"]])
     dx_row["launches"] = train_launches["conv3_dx"]
     rows.append(dx_row)
+    for r in rows:
+        r["launches_by_path"] = {path: n.get(r["name"], 0) for path, n in by_path.items()}
     for r in box_rows:        # launches at that box in the bench run (warm-up included)
         r["launches"] = per_box[tuple(r.pop("box"))][r.pop("kernel")]
     rows += box_rows

@@ -71,10 +71,12 @@ def load_net(cfg: PaSCoConfig, device, torch_ckpt: str = "",
     return net
 
 
-def adaptive_forward(cfg: PaSCoConfig, net) -> AdaptiveForward:
+def adaptive_forward(cfg: PaSCoConfig, net, class_frequencies=None) -> AdaptiveForward:
+    """The net behind the box ladder, with the label weights of
+    ``class_frequencies`` (SemanticKITTI's by default)."""
     dev = next(net.parameters()).device
-    lw = {s: torch.as_tensor(v, device=dev)
-          for s, v in tstep.labelweights_for(cfg, CLASS_FREQUENCIES).items()}
+    lw = {s: torch.as_tensor(v, device=dev) for s, v in tstep.labelweights_for(
+        cfg, CLASS_FREQUENCIES if class_frequencies is None else class_frequencies).items()}
     return AdaptiveForward(net, lw)
 
 

@@ -58,7 +58,7 @@ from pasco_torch.core.config import PaSCoConfig
 from pasco_torch.core.sparse import Box, SparseGrid, stack_grids
 from pasco_torch.models.blocks import ConvParams
 from pasco_torch.models.bottleneck import SPCDense3D
-from pasco_torch.models.norm import BatchNorm, masked_moments
+from pasco_torch.models.norm import BatchNorm, masked_sums
 from pasco_torch.models.transformer import TransformerPredictor
 from pasco_torch.models.unet import ModelInput, ModelOutput
 from pasco_torch.ops.conv import MaskedConv3Fn, conv_tiles, masked_conv3
@@ -125,10 +125,12 @@ class PointMLP(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.bn_in = BatchNorm(in_dim)
-        self.fc1, self.bn1 = nn.Linear(in_dim, 64), BatchNorm(64)
-        self.fc2, self.bn2 = nn.Linear(64, 128), BatchNorm(128)
-        self.fc3, self.bn3 = nn.Linear(128, 256), BatchNorm(256)
+        # MaskedBatchNorm: the row count floored after the cross-rank sum
+        bn = lambda c: BatchNorm(c, floor_each_rank=False)  # noqa: E731
+        self.bn_in = bn(in_dim)
+        self.fc1, self.bn1 = nn.Linear(in_dim, 64), bn(64)
+        self.fc2, self.bn2 = nn.Linear(64, 128), bn(128)
+        self.fc3, self.bn3 = nn.Linear(128, 256), bn(256)
         self.fc4 = nn.Linear(256, out_dim)
 
     def forward(self, pf, pm):
@@ -273,18 +275,16 @@ class DenseDecoderStage(nn.Module):
 
         cx, cz, cy = axis(X, mn[0]), axis(Z, mn[2]), axis(Y, mn[1])
 
-        def moments():
-            mean_f, var_f = masked_moments(x, mask)
-            mf = mask.float()
-            cnt = mf.sum().clamp(min=1.0)
-            m_x, m_z, m_y = mf.sum((1, 2)), mf.sum((0, 2)), mf.sum((0, 1))
-            s1c = torch.stack([m_x @ cx, m_y @ cy, m_z @ cz]) / cnt
-            s2c = torch.stack([m_x @ cx.square(), m_y @ cy.square(),
-                               m_z @ cz.square()]) / cnt
-            var_c = (s2c - s1c.square()).clamp(min=0.0)
-            return torch.cat([mean_f, s1c]), torch.cat([var_f, var_c])
-
         bn = self.resize_bn
+
+        def moments():
+            cnt, s1, s2 = masked_sums(x, mask)
+            mf = mask.float()
+            m_x, m_z, m_y = mf.sum((1, 2)), mf.sum((0, 2)), mf.sum((0, 1))
+            s1c = torch.stack([m_x @ cx, m_y @ cy, m_z @ cz])
+            s2c = torch.stack([m_x @ cx.square(), m_y @ cy.square(), m_z @ cz.square()])
+            return bn.moments(cnt, torch.cat([s1, s1c]), torch.cat([s2, s2c]))
+
         mean, var = bn.stats(moments)
         inv = torch.rsqrt(var + bn.epsilon) * bn.scale
         shift = bn.bias - mean * inv

@@ -50,10 +50,13 @@ def scene_to_model_input(scene: CollatedScene, device) -> ModelInput:
     )
 
 
-def build_net(cfg: PaSCoConfig, device="cuda"):
+def build_net(cfg: PaSCoConfig, device="cuda", process_group=None):
     """The dense-substrate network (the only substrate ported), on
     ``device``: the card unless the caller asks for the CPU
-    (``device="cpu"``); without a card the default raises."""
+    (``device="cpu"``); without a card the default raises.  With a
+    ``torch.distributed`` ``process_group`` its training-mode BatchNorms
+    reduce their statistics over the group's ranks (SyncBN, the
+    reference's ``build_net(cfg, axis_name=)``); off by default."""
     if cfg.model.substrate != "dense":
         raise NotImplementedError(
             "the sparse substrate is not ported (ROADMAP.md, queue 1)")
@@ -61,5 +64,8 @@ def build_net(cfg: PaSCoConfig, device="cuda"):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_net: no CUDA device; pass device='cpu' for the CPU")
     from pasco_torch.models.dense_unet import DensePaSCoNet
+    from pasco_torch.models.norm import set_process_group
 
-    return DensePaSCoNet(cfg).to(device)
+    net = DensePaSCoNet(cfg).to(device)
+    set_process_group(net, process_group)
+    return net

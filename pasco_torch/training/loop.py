@@ -196,11 +196,15 @@ def train(
     ``KittiDataset``/``SyntheticKittiDataset`` give them) for ``n_epochs``
     (``pasco_tpu/training/loop.py:159-313``), on ``device``: the card
     unless the caller asks for the CPU; without a card the default raises.
+    Single-card, as the reference's (``pasco_tpu/training/loop.py:175-176``):
+    the data-parallel step is ``pasco_torch/parallel/mesh.py:dp_train_step``.
 
     * A new state is the seeded init at the train box; where
       ``<log_dir>/checkpoints`` holds a checkpoint, the latest one is
       restored (auto-resume) and its step counts on.  As in the reference,
-      a resumed run then trains all ``n_epochs`` again.
+      a resumed run then trains all ``n_epochs`` again, and a checkpoint
+      that fails to restore (a truncated file, another config) leaves the
+      seeded init: one printed line names the error.
     * Epoch ``e`` visits ``RandomState(seed).permutation`` (a new draw per
       epoch, after that generator has collated ``dataset[0]`` as the
       reference does to build its state), cut to ``limit_train_batches``;
@@ -244,8 +248,13 @@ def train(
         lw, cw = loss_weights(cfg, class_frequencies, dev)
         logger = stack.enter_context(contextlib.closing(MetricLogger(log_dir)))
         ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"), cfg)
-        if ckpt.restore(state) is not None:
-            print(f"resumed from step {state.step}", flush=True)
+        try:
+            if ckpt.restore(state) is not None:
+                print(f"resumed from step {state.step}", flush=True)
+        except Exception as e:  # noqa: BLE001 -- the reference starts afresh (loop.py:215-223)
+            print(f"could not restore {ckpt.directory} ({type(e).__name__}: {e}); "
+                  f"starting afresh", flush=True)
+            state = new_train_state(cfg, device, seed, lr_mode)   # a restore may stop halfway
         for epoch, scenes in enumerate(epochs):
             panop = epoch >= pretrain_sem_epochs
             t_epoch = time.perf_counter()

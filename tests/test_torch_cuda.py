@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes (tile edges in x, z and y, both conv tile geometries) and
 every channel width of the flagship path, the differentiable training
-conv's gradients likewise, and the whole forward and one whole train step
-with the kernels against the plain versions on the CPU.
+conv's gradients likewise, the whole forward (n_infers 1, 3 and, with the
+KITTI-360 widths, 2) and one whole train step with the kernels against the
+plain versions on the CPU, and the data-parallel step of two gloo ranks
+sharing the card against the single-card step.
 
 Marked ``cuda``; each test skips without a CUDA device.  This file imports
 no JAX, so it runs where JAX is absent:
@@ -601,13 +603,18 @@ def test_wrappers_raise_on_wrong_input(dev):
         extract.stream_extract(m, 10, x)
 
 
-def _forward_matches_cpu_plain(dev, S):
+def _forward_matches_cpu_plain(dev, S, kitti360=False):
+    import dataclasses
+
     import numpy as np
 
     from pasco_tpu.core.config import flagship_narrow_config
     from pasco_torch.models.unet import ModelInput, build_net
 
     cfg = flagship_narrow_config(n_infers=S)
+    if kitti360:    # kitti360_config's classes, input channels and things
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_classes=19, in_channels=8),
+                          thing_ids=(1, 2, 3, 4, 5, 6))
     r = np.random.RandomState(0)
     P = cfg.capacity.num_points
     coords = np.zeros((P, 4), np.int32)
@@ -691,6 +698,47 @@ def test_mimo_forward_matches_cpu_plain(dev):
     subnet whose sets differ attend over other voxels and hold to 5% in
     norm (measured 2.1%, max|d| 0.24)."""
     _forward_matches_cpu_plain(dev, 3)
+
+
+def test_kitti360_forward_matches_cpu_plain(dev):
+    """The same at ``n_infers=2`` with ``kitti360_config``'s 19 classes and 8
+    raw input channels (two subnets, two subnet boxes)."""
+    _forward_matches_cpu_plain(dev, 2, kitti360=True)
+
+
+def test_dp_two_ranks_on_card_match_single_card(dev):
+    """Two gloo ranks sharing the card (``chip_smoke.dp_rank`` at
+    ``flagship_narrow_config(n_infers=1)``): the data-parallel step on two
+    copies of a scene with SyncBN and shared draws against the single-card
+    step, whose own check against the plain CPU step is
+    ``test_train_step_matches_cpu_plain`` (bounds at
+    ``chip_smoke._hold_step``); the cut BatchNorm reduction must miss
+    them; on two distinct scenes without SyncBN the step must be their
+    accumulation on one card, which rank 0's own gradient must miss;
+    ``dp_eval_step`` on two scenes gives the sum of their counts."""
+    import os
+    import pickle
+    import tempfile
+
+    import chip_smoke
+    from pasco_torch.core.config import flagship_narrow_config
+    from pasco_torch.parallel.mesh import spawn_ranks
+    from pasco_torch.training.loop import synthetic_train_scenes
+
+    cfg = flagship_narrow_config(n_infers=1)
+    cols = synthetic_train_scenes(cfg, 2, seed=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scenes.pkl")
+        with open(path, "wb") as fh:
+            pickle.dump((cols[0], cols), fh)
+        r0, r1 = spawn_ranks(chip_smoke.dp_rank, 2, cfg, path)
+    assert not r0["over"], r0["over"]
+    assert r0["cut_over"]
+    assert not r0["distinct_over"], r0["distinct_over"]
+    assert r0["own_over"]
+    assert all(torch.equal(r0[k]["sums"], r1[k]["sums"]) for k in ("cut", "dp", "distinct"))
+    want = sum(r0["alone"])
+    assert torch.equal(r0["eval"], want) and torch.equal(r1["eval"], want)
 
 
 def test_train_step_matches_cpu_plain(dev):

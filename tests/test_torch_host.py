@@ -174,7 +174,8 @@ def test_host_chain_exercises_every_stage():
     assert len(out["ensemble_panop"]) == 4 and len(out["ssc"]) == 4
 
 
-@pytest.mark.parametrize("name", ["PaSCoConfig", "flagship_narrow_config"])
+@pytest.mark.parametrize("name", ["PaSCoConfig", "flagship_narrow_config",
+                                  "kitti360_config"])
 def test_configs_identical(name):
     ref, port = _pkg("pasco_tpu").config, _pkg("pasco_torch").config
     assert_same(getattr(ref, name)(), getattr(port, name)(), name)
@@ -272,3 +273,116 @@ def test_visualization_ply_identical(tmp_path):
         a, b = (tmp_path / "ref" / f).read_bytes(), (tmp_path / "port" / f).read_bytes()
         assert a == b and a.count(b"\n") > 100, f
     assert_same(ref.median_filter_3d(sem), port.median_filter_3d(sem))
+
+
+# --------------------------------------------------------------------------
+# SSCBench-KITTI360 (pasco_torch/data/kitti360)
+# --------------------------------------------------------------------------
+
+
+def write_kitti360_layout(root, layout="sscbench", n_frames=2, seed=0, block=(24, 24, 8)):
+    """A fake SSCBench-KITTI360 tree under ``root`` for the first drive of
+    each split (the extension of ``tests/test_data_pipeline.py:242``'s
+    fixture): ``n_frames`` scans each, a known block of ``block`` voxels at
+    the volume's centre (a road floor, a car, a person and a building
+    wall, everything else 255), instance ids for the things, and 600 points
+    inside the block.  ``layout="sscbench"`` writes the label volumes
+    (``<root>/labels/<drive>/<frame>_1_1.npy``), the instance pickles
+    (``<root>/instances``), the raw scans by their original 10-digit id
+    (``<root>/raw/data_3d_raw``) and ``<root>/match.txt``; ``"fallback"``
+    the SemanticKITTI-style ``<root>/raw/data_2d_raw/<drive>/voxels`` and
+    ``velodyne_points`` directories.  Returns the dataset's keyword
+    arguments."""
+    import os
+    import pickle
+
+    from pasco_torch.data.kitti360.params import SPLIT_DRIVES
+
+    rng = np.random.RandomState(seed)
+    bx, by, bz = block
+    x0, y0, z0 = 128 - bx // 2, 128 - by // 2, 12
+    match = []
+    for split in ("train", "val", "test"):
+        drive = SPLIT_DRIVES[split][0]
+        for k in range(n_frames):
+            frame, raw_id = f"{k:06d}", f"{40 + 7 * k:010d}"
+            sem = np.full((256, 256, 32), 255, np.uint8)
+            inst = np.zeros(sem.shape, np.int32)
+            sem[x0:x0 + bx, y0:y0 + by, z0:z0 + bz] = 0
+            sem[x0:x0 + bx, y0:y0 + by, z0] = 7                          # road
+            cx, cy = x0 + 2 + rng.randint(0, bx // 2), y0 + 2 + rng.randint(0, by // 2)
+            sem[cx:cx + 6, cy:cy + 4, z0 + 1:z0 + 3] = 1                   # car
+            inst[cx:cx + 6, cy:cy + 4, z0 + 1:z0 + 3] = 1
+            sem[x0 + bx - 3, y0 + 2:y0 + 4, z0 + 1:z0 + 5] = 6             # person
+            inst[x0 + bx - 3, y0 + 2:y0 + 4, z0 + 1:z0 + 5] = 2
+            sem[x0:x0 + bx, y0 + by - 1, z0 + 1:z0 + bz] = 11              # building
+            vox = np.stack([rng.randint(x0, x0 + bx, 600), rng.randint(y0, y0 + by, 600),
+                            rng.randint(z0, z0 + bz, 600)], 1)
+            xyz = np.array([0.0, -25.6, -2.0]) + 0.2 * (vox + rng.rand(600, 3))
+            pts = np.concatenate([xyz, rng.rand(600, 1)], 1).astype(np.float32)
+            if layout == "sscbench":
+                for sub, name, data in (("labels", "npy", sem), ("instances", "pkl", None)):
+                    d = os.path.join(root, sub, drive)
+                    os.makedirs(d, exist_ok=True)
+                    path = os.path.join(d, f"{frame}_1_1.{name}")
+                    if data is not None:
+                        np.save(path, data)
+                    else:
+                        with open(path, "wb") as f:
+                            pickle.dump({"semantic_labels": sem, "instance_labels": inst}, f)
+                d = os.path.join(root, "raw", "data_3d_raw", drive, "velodyne_points", "data")
+                match.append(f"{drive} {raw_id}.png {frame}.png\n")
+            else:
+                base = os.path.join(root, "raw", "data_2d_raw", drive)
+                os.makedirs(os.path.join(base, "voxels"), exist_ok=True)
+                sem.astype(np.uint16).reshape(-1).tofile(
+                    os.path.join(base, "voxels", f"{frame}.label"))
+                np.packbits(np.zeros(sem.size, np.uint8)).tofile(
+                    os.path.join(base, "voxels", f"{frame}.invalid"))
+                np.packbits((sem.reshape(-1) > 0) & (sem.reshape(-1) < 255)).tofile(
+                    os.path.join(base, "voxels", f"{frame}.bin"))
+                d = os.path.join(base, "velodyne_points", "data")
+                raw_id = frame
+            os.makedirs(d, exist_ok=True)
+            pts.tofile(os.path.join(d, f"{raw_id}.bin"))
+    kw = dict(root=os.path.join(root, "raw"))
+    if layout == "sscbench":
+        with open(os.path.join(root, "match.txt"), "w") as f:
+            f.writelines(match)
+        kw.update(label_root=os.path.join(root, "labels"),
+                  instance_label_root=os.path.join(root, "instances"),
+                  match_file=os.path.join(root, "match.txt"))
+    return kw
+
+
+@pytest.mark.parametrize("layout", ["sscbench", "fallback"])
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_kitti360_dataset_identical(tmp_path, layout, split):
+    """``Kitti360Dataset`` of both packages on the same tree: the same
+    scans (SSCBench frames mapped to their raw ids through the match file,
+    or the fallback directory's frames) and identical processed samples
+    at ``n_subnets=2`` with augmentation (the train split also draws the
+    other subnet's scan and crops)."""
+    ref = importlib.import_module("pasco_tpu.data.kitti360.dataset")
+    port = importlib.import_module("pasco_torch.data.kitti360.dataset")
+    kw = write_kitti360_layout(str(tmp_path), layout, n_frames=3)
+    if layout == "sscbench":
+        assert_same(ref.parse_match_file(kw["match_file"]),
+                    port.parse_match_file(kw["match_file"]))
+    dss = [m.Kitti360Dataset(split=split, n_subnets=2, data_aug=True, frame_interval=1,
+                             seed=3, **kw) for m in (ref, port)]
+    assert dss[0].scans == dss[1].scans and len(dss[1]) == 3
+    if layout == "sscbench":
+        assert dss[1].scans[1][2] == "0000000047"
+    for i in (0, 2, 1):
+        a, b = dss[0][i], dss[1][i]
+        assert len(b) == 2
+        assert_same(a, b, f"{split}[{i}]")
+
+
+def test_kitti360_params_identical():
+    ref = importlib.import_module("pasco_tpu.data.kitti360.params")
+    port = importlib.import_module("pasco_torch.data.kitti360.params")
+    for name in ("THING_IDS", "N_CLASSES", "CLASS_NAMES", "CLASS_FREQUENCIES",
+                 "SPLIT_DRIVES"):
+        assert_same(getattr(ref, name), getattr(port, name), name)

@@ -1,8 +1,9 @@
 """The port imports torch and never JAX, and nothing of the JAX package:
 every ``pasco_torch`` module (the dispatch, evaluation, checkpoint,
-converter, tables, timing, visualization, Robo3D, trainer and scene-loader
-modules named), ``chip_smoke.py`` and the scripts in ``scripts_torch/``
-(the bench, the three evaluation CLIs and the three training CLIs named)
+converter, tables, timing, visualization, Robo3D, trainer, scene-loader,
+data-parallel and KITTI-360 modules named), ``chip_smoke.py`` and the
+scripts in ``scripts_torch/`` (the bench, the four evaluation CLIs and the
+four training CLIs named)
 import in a fresh interpreter with
 no ``jax``, ``jaxlib``, ``flax`` or ``pasco_tpu`` module in
 ``sys.modules`` afterwards."""
@@ -34,10 +35,11 @@ for name in ("pasco_torch.inference.dispatch", "pasco_torch.inference.evaluate",
              "pasco_torch.metrics.tables", "pasco_torch.training.convert_torch",
              "pasco_torch.training.checkpoint", "pasco_torch.data.semantic_kitti.robo3d",
              "pasco_torch.training.loop", "pasco_torch.training.step",
-             "pasco_torch.data.loader"):
+             "pasco_torch.data.loader", "pasco_torch.parallel.mesh",
+             "pasco_torch.data.kitti360.dataset", "pasco_torch.data.kitti360.params"):
     assert name in names, name
 for name in ("bench", "eval", "eval_robo3d", "save_outputs_panoptic", "train",
-             "bench_train_step", "make_bench_ckpt"):
+             "bench_train_step", "make_bench_ckpt", "train_kitti360", "eval_kitti360"):
     assert f"scripts_torch/{name}.py" in scripts, name
 """
 

@@ -184,6 +184,34 @@ def test_train_end_to_end_with_resume(tmp_path):
     assert os.path.exists(os.path.join(log_dir, "checkpoints", "ckpt_3.pt"))
 
 
+def test_train_starts_afresh_on_a_truncated_checkpoint(tmp_path, capsys):
+    """A checkpoint that fails to restore (here a truncated file) leaves
+    the seeded init, as the reference's ``train`` does
+    (``pasco_tpu/training/loop.py:215-223``), with one printed line that
+    names the error; the run then trains from step 0 and saves."""
+    from pasco_torch.training.checkpoint import CheckpointManager
+
+    cfg = tiny_config(n_infers=1)
+    log_dir = tmp_path / "run"
+    mgr = CheckpointManager(str(log_dir / "checkpoints"), cfg)
+    mgr.save(5, loop.new_train_state(cfg, "cpu", seed=9))
+    path = log_dir / "checkpoints" / "ckpt_5.pt"
+    path.write_bytes(path.read_bytes()[: path.stat().st_size // 2])
+    kw = dict(log_dir=str(log_dir), class_frequencies=_freqs(cfg), num_workers=0,
+              device="cpu")
+    fresh = loop.train(cfg, _datasets(cfg, 2), n_epochs=0, **kw)
+    out = capsys.readouterr().out
+    assert "could not restore" in out and "starting afresh" in out
+    init = loop.new_train_state(cfg, "cpu", seed=0)
+    assert fresh.step == 0 and fresh.opt.count == 0
+    have, want = fresh.net.state_dict(), init.net.state_dict()
+    assert all(torch.equal(have[k], want[k]) for k in want)
+    state = loop.train(cfg, _datasets(cfg, 2), n_epochs=1, limit_train_batches=1, **kw)
+    assert [r["step"] for r in state.history] == [1]
+    assert np.isfinite(state.history[0]["total_loss"])
+    assert (log_dir / "checkpoints" / "ckpt_1.pt").exists()
+
+
 def test_sem_only_epoch_at_n_infers_3(tmp_path):
     """At ``n_infers=3`` the first epoch trains the sem-completion losses
     only (``pretrain_sem_epochs = 1``), the second is panoptic."""
@@ -263,34 +291,109 @@ def test_train_cli_matches_reference(argv, monkeypatch):
     assert os.path.basename(gkw["log_dir"]) == ja.exp_name(cli.parse_args(args))
 
 
+def _bench_ckpt_inputs(inp):
+    return [np.asarray(a) for a in inp]
+
+
 def test_make_bench_ckpt_writes_a_strict_npz(tmp_path, monkeypatch):
-    """``make_bench_ckpt.py`` hands the trainer a ``SyntheticKittiDataset``
-    of ``min(steps, 8)`` scenes for whole epochs (here the trainer is a
-    stand-in that returns a tiny net) and saves its weights as an npz that
+    """``make_bench_ckpt.py`` takes exactly ``--steps`` steps of
+    ``train_step`` on the trainer's state (here a tiny net on the CPU, the
+    steps stand-ins that count) and saves its weights as an npz that
     ``flax_to_torch`` loads with ``strict=True``."""
+    from pasco_torch.core import config
+
     cfg = tiny_config(n_infers=1)
-    net = build_net(cfg, device="cpu")
-    net.reset_parameters(torch.Generator().manual_seed(0))
-    calls = []
+    monkeypatch.setattr(config, "PaSCoConfig", lambda: cfg)
+    states = []
 
-    def fake_train(cfg_, ds, **kw):
-        calls.append((len(ds), kw))
-        loop.MetricLogger(kw["log_dir"]).log(1, {"epoch": 0, "epoch_time": 1.0})
-        st = tstep.create_train_state(net, cfg)
-        st.history.append({"total_loss": 1.0, "epoch": 0, "step_s": 0.5, "event_ms": 400.0})
-        return st
+    def fake_step(state, *a, **k):
+        state.step += 1
+        return {"total_loss": torch.tensor(1.0)}
 
-    monkeypatch.setattr(loop, "train", fake_train)
+    monkeypatch.setattr(loop, "new_train_state", _recorded_new_state(states))
+    monkeypatch.setattr(tstep, "train_step", fake_step)
     out = tmp_path / "ckpt.npz"
     _module("scripts_torch/make_bench_ckpt.py", "make_bench_ckpt").main(
-        ["--steps", "20", "--out", str(out)])
-    (n, kw), = calls
-    assert n == 8 and kw["n_epochs"] == 3 and kw["ckpt_every_epochs"] == 3
+        ["--steps", "20", "--out", str(out), "--device", "cpu"])
+    (state,) = states
+    assert state.step == 20
     data = np.load(out)
     other = build_net(cfg, device="cpu")
     other.load_state_dict(flax_to_torch({k: data[k] for k in data.files}), strict=True)
     assert all(torch.equal(a, b) for a, b in zip(other.state_dict().values(),
-                                                 net.state_dict().values()))
+                                                 state.net.state_dict().values()))
+
+
+def _recorded_new_state(states):
+    real = loop.new_train_state
+
+    def new_state(cfg_, device, seed):
+        st = real(cfg_, device, seed)
+        states.append(st)
+        return st
+
+    return new_state
+
+
+def test_make_bench_ckpt_recipe_matches_reference(tmp_path, monkeypatch, capsys):
+    """``make_bench_ckpt.py`` trains the reference script's recipe: the
+    same pool of 8 collated synthetic crops, cycled in order for exactly
+    ``--steps`` steps, the loss printed at the same steps (every
+    ``--log_every`` and the last).  Both scripts run at ``tiny_config`` with
+    their steps as stand-ins that record each step's input (the reference's
+    ``jax.jit`` an identity and its state a stand-in, so nothing compiles);
+    the inputs are compared array by array."""
+    import jax
+
+    from pasco_tpu.core import config as jconfig
+    from pasco_tpu.training import step as jstep
+    from pasco_torch.core import config
+
+    cfg = tiny_config(n_infers=1)
+    steps, every = 11, 4
+    ref, got = [], []
+
+    def ref_step(state, inp, tgt, key, **kw):
+        ref.append(_bench_ckpt_inputs(inp))
+        return state, {"total_loss": 0.0}
+
+    def port_step(state, inp, tgt, lw, cw, cfg_, seed=0):
+        got.append(_bench_ckpt_inputs(inp))
+        state.step += 1
+        return {"total_loss": torch.tensor(0.0)}
+
+    class Stand:
+        params, batch_stats = {}, {}
+
+    monkeypatch.setattr(jconfig, "PaSCoConfig", lambda: cfg)
+    monkeypatch.setattr(jstep, "create_train_state", lambda *a, **k: (Stand(), None))
+    monkeypatch.setattr(jstep, "train_step", ref_step)
+    monkeypatch.setattr(jax, "jit", lambda f, **k: f)
+    monkeypatch.setattr(jax.config, "update", lambda *a: None)
+    monkeypatch.setattr(sys, "argv", ["make_bench_ckpt.py", "--steps", str(steps), "--out",
+                                      str(tmp_path / "ref.npz"), "--log_every", str(every)])
+    _module("scripts_tpu/make_bench_ckpt.py", "jax_make_bench_ckpt").main()
+    ref_out = capsys.readouterr().out
+
+    monkeypatch.setattr(config, "PaSCoConfig", lambda: cfg)
+    monkeypatch.setattr(tstep, "train_step", port_step)
+    _module("scripts_torch/make_bench_ckpt.py", "make_bench_ckpt").main(
+        ["--steps", str(steps), "--out", str(tmp_path / "port.npz"), "--log_every",
+         str(every), "--device", "cpu"])
+    got_out = capsys.readouterr().out
+
+    assert len(ref) == len(got) == steps
+    for a, b in zip(ref, got):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    # the pool is 8 distinct scenes, cycled in order
+    assert not np.array_equal(got[0][0], got[1][0])
+    np.testing.assert_array_equal(got[8][0], got[0][0])
+
+    def logged(text):
+        return [line.split(":")[0] for line in text.splitlines() if line.startswith("step ")]
+
+    assert logged(got_out) == logged(ref_out) == ["step 0", "step 4", "step 8", "step 10"]
 
 
 def test_bench_train_step_needs_a_card(monkeypatch):
