@@ -43,11 +43,22 @@
    back to back alternating 352 -> 256 -> 320 -> 288, bit-exact
    (:func:`alternating_extraction`); ``scripts_torch/bench.py``'s pipelined
    protocol on ``bench.py``'s six scans through ``AdaptiveForward`` and
-   through the fixed 352 box in turns, with each scan's box, scans/s,
+   through the fixed 352 box, once each, with each scan's box, scans/s,
    device ms per scan, peak memory and the launches per forward of every
    box (:func:`bench_phase`); the 288 scan through 288 and 352, kept cells
    identical and logits within the bf16 bound (:func:`two_boxes_check`);
-   then the MIMO ensemble (n_infers=3): the first 3 of ``bench.py``'s six
+   then the batched forward (``B`` scans per call): rows 1-3 on a batch of
+   two of bench.py's scans (distinct box corners) at 352, each in one
+   launch equal bit for bit to the per-scan launches and within its plain
+   version's bound, ``up_preamble`` also with each scan's own box corner,
+   where the plain version with the corners swapped must break the bound,
+   each row timed against its per-scan launches
+   (:func:`batch_kernel_phase`); the forward of that batch against each
+   scan's own forward (:func:`batch_forward_check`); ``scripts_torch/
+   bench.py``'s batched protocol at B = 1, 2 and 4 with scans/s, device ms
+   per batch, peak memory and host syncs (0), and the launches of one
+   B = 4 forward (rows 1-3 once, ``stream_extract`` once per scan:
+   :func:`batch_bench_phase`); then the MIMO ensemble (n_infers=3): the first 3 of ``bench.py``'s six
    n_infers=3 scans, each 3 augmented views of one scene, through the
    forward (kept voxels for every subnet, at least 60 ``masked_conv3``
    and 12 ``stream_extract`` launches per forward), then
@@ -110,10 +121,12 @@ kernels' numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
 ``bound_by``, ``device_ms`` for rows 4-5 and 8; launches from the MIMO
 forward, the n_infers 3 trainer and the two entry-point phases, and under
 ``launches_by_path`` those of every path, each counted from 0 just before
-it: the MIMO forward, the n_infers 3 trainer, rank 0's data-parallel step
-and the KITTI-360 forward; rows 1-5
+it: the MIMO forward, the n_infers 3 trainer, rank 0's data-parallel step,
+the KITTI-360 forward and the batched B = 4 forward (``batch``); rows 1-5
 again per smaller box, named by box, with the launches at that box in the
-n_infers=1 bench run), then as its last line
+n_infers=1 bench run; rows 1-3 again on the batch of two, named
+``(batch 2)``, with their launches in the B = 4 forward), then as its last
+line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
 result line); so does a machine without a CUDA device.
 """
@@ -351,7 +364,7 @@ def conv3d_library(xm, w):
     ci, co = w.shape[1:]
     wl = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 2, 1).contiguous(
         memory_format=torch.channels_last_3d)
-    xl = xm.permute(3, 0, 1, 2)[None]
+    xl = (xm if xm.dim() == 5 else xm[None]).permute(0, 4, 1, 2, 3)   # a batch at N = B
     return lambda: F.conv3d(xl, wl, padding=1)
 
 
@@ -1474,7 +1487,9 @@ def host_scenes(kind, n_infers, n, seed, nice=0, out=None):
     host (NumPy only, so a worker process draws them while the card works):
     ``"eval"`` the scans of :func:`make_scans`, ``"train"`` those of
     ``synthetic_train_scenes``, ``"unaugmented"`` :func:`unaugmented_scene`,
-    ``"kitti360"`` the scan and the train scene of :func:`kitti360_scenes`.
+    ``"kitti360"`` the scan and the train scene of :func:`kitti360_scenes`,
+    ``"batch"`` the first ``n`` scans of ``scripts_torch/bench.py``'s batched
+    protocol.
     ``nice`` lowers the drawing process's priority, so that it takes the
     cores the main process leaves idle.  With ``out``, the scenes are
     pickled to that file and the path is returned: the process that waits
@@ -1496,6 +1511,8 @@ def host_scenes(kind, n_infers, n, seed, nice=0, out=None):
         cols = synthetic_train_scenes(cfg, n, seed)
     elif kind == "kitti360":
         cols = kitti360_scenes(n_infers, seed)
+    elif kind == "batch":
+        cols = _script("bench").batch_scenes(cfg, n)
     else:
         cols = [unaugmented_scene(cfg, seed)]
     if out is None:
@@ -1583,12 +1600,12 @@ def counting_forward(net):
     return CountingForward()
 
 
-def bench_phase(cfg, scans, net, label, modes=("adaptive", "fixed", "fixed", "adaptive")):
+def bench_phase(cfg, scans, net, label, modes=("adaptive", "fixed")):
     """``scripts_torch/bench.py``'s pipelined protocol on ``bench.py``'s
     scans through :class:`AdaptiveForward` and through the fixed 352 box, in
-    turns (``modes``: adaptive, fixed, fixed, adaptive by default), after
-    one warm-up forward per candidate box.  Prints each scan's box, scans/s and device ms per scan
-    of each run, the peak memory and the launches per forward of each box,
+    turns (``modes``: adaptive, then fixed, by default), after one warm-up
+    forward per candidate box.  Prints each scan's box, scans/s and device
+    ms per scan of each run, the peak memory and the launches per forward of each box,
     which must reach :func:`forward_launch_floor`.  The counts are set to 0
     just before the warm-up and read after the last run.  Returns
     (results by mode, launches per box, forwards per box)."""
@@ -1632,31 +1649,39 @@ def bench_phase(cfg, scans, net, label, modes=("adaptive", "fixed", "fixed", "ad
     return res, fwd.per_box, fwd.calls
 
 
-def two_boxes_check(cfg, net, scan, small):
-    """One scan through the ``small`` box that covers it and through the
-    largest: the kept cells of every decoder scale and subnet identical
-    (then the extraction coords and masks are identical row by row: a
-    shared box minimum keeps the flat-index order), the dense semantic
-    logits at every valid cell and the query logits within the bf16 bound.
-    A kept cell that flips is printed with the margin between its top two
-    logits, which must lie within that bound."""
-    from pasco_torch.inference.dispatch import candidate_boxes
-
-    col, inp = scan
-    big = candidate_boxes(cfg)[-1]
-    got = {}
-    for box in (small, big):
+def decoder_runs(net, calls):
+    """Each of ``calls`` (a forward of ``net``) under hooks on the decoder
+    stages: ``(output, dense)`` per call, ``dense[scale][b]`` the stage's
+    ``(sem, top_class, msk)`` of scan ``b`` of the call."""
+    runs = []
+    for fn in calls:
         dense, hooks = {}, []
         for sc in (1, 2, 4):
             hooks.append(getattr(net, f"dec_s{sc}").register_forward_hook(
-                lambda m, a, o, sc=sc: dense.__setitem__(sc, (o[1], o[2], o[4]))))
+                lambda m, a, o, sc=sc: dense.__setitem__(
+                    sc, [(o[1][b], o[2][b], o[4][b]) for b in range(o[4].shape[0])])))
         try:
             with torch.no_grad():
-                got[box] = (net(inp, box_extent=box), dense)
+                out = fn()
         finally:
             for h in hooks:
                 h.remove()
-    (out_s, dense_s), (out_b, dense_b) = got[small], got[big]
+        runs.append((out, dense))
+    return runs
+
+
+def hold_runs(label, got, ref):
+    """One scan's ``(output, dense)`` (of :func:`decoder_runs`, ``dense``
+    per scale for this scan) against another run's of the same scan, whose
+    box may be larger (compared on ``got``'s box, which it must cover): the
+    valid cells of every decoder scale identical, the dense semantic logits
+    at every valid cell and the query logits within the bf16 bound, the
+    kept cells of every scale and subnet identical but where a cell's top
+    two logits lie within that bound (printed with the margin).  Where no
+    cell flipped, the extraction coords and masks are identical row by row
+    at every scale and subnet (a shared box minimum keeps the flat-index
+    order)."""
+    (out_s, dense_s), (out_b, dense_b) = got, ref
     flips = {}
     for sc in (1, 2, 4):
         sem_s, top_s, msk_s = dense_s[sc]
@@ -1664,9 +1689,9 @@ def two_boxes_check(cfg, net, scan, small):
         X, Z, Y = msk_s.shape
         inner = (slice(0, X), slice(0, Z), slice(0, Y))
         if msk_b.sum() != msk_b[inner].sum():
-            raise AssertionError(f"s{sc}: valid cells outside the {small} box")
+            raise AssertionError(f"{label}, s{sc}: valid cells outside the smaller box")
         if not torch.equal(msk_s, msk_b[inner]):
-            raise AssertionError(f"s{sc}: the valid cells differ between the boxes")
+            raise AssertionError(f"{label}, s{sc}: the valid cells differ")
         a, b = sem_s.float(), sem_b[inner].float()
         err = (a - b)[msk_s].abs().max().item()
         tol = TOL_REL * b[msk_s].abs().max().item() + TOL_ABS
@@ -1676,32 +1701,325 @@ def two_boxes_check(cfg, net, scan, small):
         top2 = b.topk(2, dim=-1).values
         margin = (top2[..., 0] - top2[..., 1])[flip]
         flips[sc] = int(flip.sum())
-        print(f"check box {small[0]} against {big[0]}, dec_s{sc}: {int(msk_s.sum())} valid "
+        print(f"check {label}, dec_s{sc}: {int(msk_s.sum())} valid "
               f"cells, sem logits max|d| {err:.4g} (bound {tol:.4g}), kept "
               f"{int(keep_s.sum())} / {int(keep_b.sum())}, {flips[sc]} flipped"
               + (f", margins {[round(v, 4) for v in margin.tolist()[:20]]}" if flips[sc] else ""),
               flush=True)
         if not err <= tol:
-            raise AssertionError(f"dec_s{sc}: sem logits differ between boxes: {err} > {tol}")
+            raise AssertionError(f"{label}, dec_s{sc}: sem logits differ: {err} > {tol}")
         if flips[sc] and not margin.max().item() <= tol:
-            raise AssertionError(f"dec_s{sc}: a kept cell flipped at margin "
+            raise AssertionError(f"{label}, dec_s{sc}: a kept cell flipped at margin "
                                  f"{margin.max().item()} > {tol}")
     q_s, q_b = out_s.predictor.query_logits.float(), out_b.predictor.query_logits.float()
     q_err = (q_s - q_b).abs().max().item()
     q_tol = TOL_REL * q_b.abs().max().item() + TOL_ABS
-    print(f"check box {small[0]} against {big[0]}: query logits max|d| {q_err:.4g} "
-          f"(bound {q_tol:.4g})", flush=True)
+    print(f"check {label}: query logits max|d| {q_err:.4g} (bound {q_tol:.4g})", flush=True)
     if not q_err <= q_tol:
-        raise AssertionError(f"query logits differ between boxes: {q_err} > {q_tol}")
+        raise AssertionError(f"{label}: query logits differ: {q_err} > {q_tol}")
     if not any(flips.values()):
         for which in ("sem_grids", "panop_grids"):
             for sc in (1, 2, 4):
                 g, h = getattr(out_s, which)[sc], getattr(out_b, which)[sc]
                 if not (torch.equal(g.coords, h.coords) and torch.equal(g.mask, h.mask)):
-                    raise AssertionError(f"{which}[{sc}]: coords or masks differ between boxes")
+                    raise AssertionError(f"{label}, {which}[{sc}]: coords or masks differ")
         l_err = (out_s.sem_logits[1].float() - out_b.sem_logits[1].float()).abs().max().item()
-        print(f"check box {small[0]} against {big[0]}: extraction coords and masks identical "
-              f"at every scale and subnet; extracted s1 logits max|d| {l_err:.4g}", flush=True)
+        print(f"check {label}: extraction coords and masks identical at every scale and "
+              f"subnet; extracted s1 logits max|d| {l_err:.4g}", flush=True)
+    return flips
+
+
+def two_boxes_check(cfg, net, scan, small):
+    """One scan through the ``small`` box that covers it and through the
+    largest, held by :func:`hold_runs`."""
+    from pasco_torch.inference.dispatch import candidate_boxes
+
+    _, inp = scan
+    big = candidate_boxes(cfg)[-1]
+    (out_s, dense_s), (out_b, dense_b) = decoder_runs(
+        net, [lambda: net(inp, box_extent=small), lambda: net(inp, box_extent=big)])
+    hold_runs(f"box {small[0]} against {big[0]}",
+              (out_s, {sc: d[0] for sc, d in dense_s.items()}),
+              (out_b, {sc: d[0] for sc, d in dense_b.items()}))
+
+
+BATCH_CHECK = 2            # scans per batch in the batched kernel and forward checks
+BATCH_BENCH = (1, 2, 4)    # batch sizes of the batched bench protocol
+
+
+def batch_of(scans):
+    """The first :data:`BATCH_CHECK` scans' inputs, which must have distinct
+    box corners (``global_min``): a scan read at another scan's corner must
+    show."""
+    inps = [inp for _, inp in scans[:BATCH_CHECK]]
+    mins = [tuple(i.global_min.tolist()) for i in inps]
+    if len(set(mins)) != len(inps):
+        raise AssertionError(f"the batch's scans share a box corner: {mins}")
+    return inps
+
+
+def _batched_case(name, label, batched, singles, ref, mask, region=None):
+    """A batched launch against its per-scan launches (bit for bit: each
+    scan's tiles are computed as a launch of that scan alone computes them)
+    and against the plain version (the bound of :func:`_compare`).  Returns
+    (max|d| against the plain version, the bound)."""
+    for b, one in enumerate(singles):
+        if not torch.equal(batched[b], one):
+            d = (batched[b].float() - one.float()).abs().max().item()
+            raise AssertionError(f"{name} {label}: scan {b} of the batched launch differs from "
+                                 f"its own launch (max|d| {d})")
+    print(f"check {name} {label}: the batched launch equals the {len(singles)} per-scan "
+          f"launches bit for bit", flush=True)
+    return _compare(f"{name} {label}, batched", batched, ref, mask, region)
+
+
+def _batch_times(name, label, shape, batched_fn, singles_fn, plain_fn, library_fn, flop,
+                 nbytes_, launches_key, kernel):
+    """Timing fields of one batched case: the batched launch (``ms``), the
+    per-scan launches it replaces (``per_scan_ms``, all of them), the plain
+    version on the batch and one library call at N = B (2 repetitions
+    each: the batch doubles their time), and the bound; then the device
+    time of the batched launch's kernel (``kernel_device_ms``) and of the
+    per-scan launches' kernels together (``per_scan_device_ms``), from the
+    profiler."""
+    from pasco_torch import kernels
+
+    before = kernels.LAUNCHES[launches_key]
+    batched_fn()
+    if kernels.LAUNCHES[launches_key] != before + 1:
+        raise AssertionError(f"{name} {label}: the batch is not one launch")
+    t = timing_fields(time_ms(batched_fn), time_ms(plain_fn, reps=2),
+                      time_ms(library_fn, reps=2), flop, nbytes_)
+    t["per_scan_ms"] = time_ms(singles_fn)
+    t.update(device_fields(batched_fn, kernel))
+    t["per_scan_device_ms"] = device_ms(profile_call(singles_fn), kernel)
+    _report(name, label, tuple(shape), t,
+            f"one launch for the batch, the per-scan launches {t['per_scan_ms']:.3f} ms; "
+            f"device: the batched kernel {t['kernel_device_ms']:.4f} ms, the per-scan kernels "
+            f"{t['per_scan_device_ms']:.4f} ms")
+    return t
+
+
+def batch_kernel_phase(cfg, scans, gen):
+    """Rows 1-3 on a batch of two of ``bench.py``'s scans (distinct box
+    corners), on their real masks at 352: ``masked_conv3`` at s1 (the scans'
+    occupancy and the near-dense decoder mask), ``down2_fused`` at enc_s2,
+    ``up_preamble`` at dec_s1 near dense, each in one launch for the batch,
+    equal bit for bit to the per-scan launches and held against its plain
+    version.  ``up_preamble`` is also run on the "coords" set of
+    :func:`up_phase` with each scan's own box corner (a generated child of
+    each scan at its origin, two different children), where a plain run
+    with the two corners swapped must break the bound.  The main case of
+    each row is timed against its per-scan launches.  Returns the JSON
+    rows."""
+    from pasco_torch.core.sparse import Box
+    from pasco_torch.ops import conv, deconv, down
+    from pasco_torch.ops.dense_ops import cell_coords, maxpool2_mask, upsample2_mask
+
+    inps = batch_of(scans)
+    dev = inps[0].point_feats.device
+    mins = torch.stack([i.global_min for i in inps])
+    _, occs, bboxes = zip(*(scan_masks(cfg, i) for i in inps))
+    occ, bbox = torch.stack(occs), torch.stack(bboxes)
+    box = Box.create(mins, cfg.scene.box_extent)
+    randn, vec, masked = _rand_fns(gen, dev)
+    B, fm, rows = len(inps), cfg.model.f_maps, []
+    print(f"-- batched kernels, B={B}, box corners {mins.tolist()}", flush=True)
+
+    # row 1: the res-block conv2 form at s1
+    c = fm[0]
+    main = None
+    for label, m in (("s1 scan occupancy", occ), ("s1 decoder, near dense", bbox)):
+        x, skip = masked(randn(*m.shape, c), m), masked(randn(*m.shape, c), m)
+        w = randn(27, c, c, scale=(27 * c) ** -0.5)
+        kw = dict(bias=vec(c), affine=(vec(c, 0.5, 1.5), vec(c)), relu_in=True, relu_out=True)
+        tiles = conv.conv_tiles(m)
+        one = [conv.conv_tiles(m[b]) for b in range(B)]
+        got = conv.masked_conv3(x, m, w, skip=skip, tiles=tiles, **kw)
+        singles = [conv.masked_conv3(x[b], m[b], w, skip=skip[b], tiles=one[b], **kw)
+                   for b in range(B)]
+        err = _batched_case("masked_conv3", label, got, singles,
+                            conv.masked_conv3_plain(x, m, w, skip=skip, **kw), m)[0]
+        del singles
+        if label != "s1 decoder, near dense":
+            continue
+        xp = masked(torch.relu(kw["affine"][0] * x.float() + kw["affine"][1]).to(x.dtype), m)
+        n_valid = int(m.sum())
+        main = _batch_times(
+            "masked_conv3", label, (*m.shape, c),
+            lambda: conv.masked_conv3(x, m, w, skip=skip, tiles=tiles, **kw),
+            lambda: [conv.masked_conv3(x[b], m[b], w, skip=skip[b], tiles=one[b], **kw)
+                     for b in range(B)],
+            lambda: conv.masked_conv3_plain(x, m, w, skip=skip, **kw),
+            conv3d_library(xp, w), n_valid * 27 * c * c * 2,
+            rows_bytes(x, n_valid) + rows_bytes(skip, n_valid)
+            + nbytes(m, w, got, kw["bias"], *kw["affine"]), "masked_conv3",
+            "masked_conv3_kernel")
+        rows.append(dict(name=f"masked_conv3 (batch {B})", source="pasco_torch/csrc/masked_conv3.cu",
+                         replaces="pasco_tpu/ops/pallas_conv.py:1159", max_abs_err=err,
+                         case=label, kernel="masked_conv3", **main))
+        del x, skip, got, xp
+
+    # row 2: enc_s2 on the scans' occupancy
+    ci, co = fm[0], fm[1]
+    m2 = maxpool2_mask(occ)
+    x = masked(randn(*occ.shape, ci), occ)
+    args = (x, occ, m2, randn(8, ci, co, scale=(8 * ci) ** -0.5), vec(co),
+            (vec(co, 0.5, 1.5), vec(co)), (vec(co, 0.5, 1.5), vec(co)))
+    tiles, one = down.down_tiles(m2), [down.down_tiles(m2[b]) for b in range(B)]
+
+    def per_scan_down():
+        return [down.down2_fused(x[b], occ[b], m2[b], *args[3:], tiles=one[b]) for b in range(B)]
+
+    got = down.down2_fused(*args, tiles=tiles)
+    err = _batched_case("down2_fused", "enc_s2 scan occupancy", got, per_scan_down(),
+                        down.down2_fused_plain(*args), m2)[0]
+    wl = args[3].reshape(2, 2, 2, ci, co).permute(4, 3, 0, 2, 1).contiguous(
+        memory_format=torch.channels_last_3d)
+    xl = x.permute(0, 4, 1, 2, 3)
+    n_valid = int(m2.sum())
+    t = _batch_times("down2_fused", "enc_s2 scan occupancy", (*occ.shape, ci, co),
+                     lambda: down.down2_fused(*args, tiles=tiles), per_scan_down,
+                     lambda: down.down2_fused_plain(*args),
+                     lambda: F.conv3d(xl, wl, stride=2), n_valid * 8 * ci * co * 2,
+                     rows_bytes(x, occ.sum()) + nbytes(occ, m2, args[3], got, args[4],
+                                                       *args[5], *args[6]), "down2_fused",
+                     "down2_kernel")
+    rows.append(dict(name=f"down2_fused (batch {B})", source="pasco_torch/csrc/down2_fused.cu",
+                     replaces="pasco_tpu/ops/pallas_down.py:244", max_abs_err=err,
+                     case="enc_s2 scan occupancy", kernel="down2_fused", **t))
+    del x, args, got, xl
+
+    # row 3: dec_s1 near dense, each scan at its own box corner
+    sc, ci, co = 1, fm[1], fm[0]
+    pkeep = maxpool2_mask(bbox)
+    child = upsample2_mask(pkeep) & bbox
+    union = child | occ
+    parent = randn(*pkeep.shape, ci)
+    skip = masked(randn(*child.shape, co), occ)
+    bd, br = vec(co), vec(co)
+    bn = ((vec(co, 0.5, 1.5), vec(co)), (vec(co + 3, 0.5, 1.5), vec(co + 3)))
+    wd = randn(8, ci, co, scale=(8 * ci) ** -0.5)
+    wd_d = randn(8, ci, co, scale=ci ** -0.5)
+    wr_c = randn(co + 3, co, scale=co ** -0.5)
+    wr_c[co:] = randn(3, co)
+    tiles, one = deconv.up_tiles(union), [deconv.up_tiles(union[b]) for b in range(B)]
+
+    def up_args(skip_, wd_, wr_, box_, b=None):
+        sel = (lambda t: t) if b is None else (lambda t: t[b])
+        bx = box_ if b is None else Box(box_.minimum[b], box_.extent)
+        return (sel(parent), sel(pkeep), sel(child), sel(union), sel(skip_), bx, sc, wd_, bd,
+                *bn, wr_, br)
+
+    def per_scan_up(skip_, wd_, wr_, box_):
+        return [deconv.up_preamble(*up_args(skip_, wd_, wr_, box_, b), tiles=one[b])
+                for b in range(B)]
+
+    label = "dec_s1 near dense"
+    sets = [("coords + skip", (skip, wd, randn(co + 3, co, scale=0.1), box))]
+    # "coords": scan b's box corner puts one of its generated children (a
+    # different one per scan) at the origin; checked where |u| <= 2
+    corners = []
+    for b in range(B):
+        cells = child[b].nonzero()
+        corners.append(-sc * cells[(b + 1) * len(cells) // (B + 1)][[0, 2, 1]])
+    box_c = Box.create(torch.stack(corners), box.extent)
+    near = (cell_coords(box_c, sc).abs() <= 2 * sc).all(-1)
+    sets.append(("coords", (skip * 0.01, wd_d * 0.01, wr_c, box_c)))
+    errs, refs, tols = [], {}, {}
+    for vlabel, (sk, wd_, wr_, bx) in sets:
+        region = near if vlabel == "coords" else None
+        got = deconv.up_preamble(*up_args(sk, wd_, wr_, bx), tiles=tiles)
+        refs[vlabel] = deconv.up_preamble_plain(*up_args(sk, wd_, wr_, bx))
+        err, tols[vlabel] = _batched_case(
+            "up_preamble", f"{label}, {vlabel}" + ("" if region is None else " (|u| <= 2)"),
+            got, per_scan_up(sk, wd_, wr_, bx), refs[vlabel], union, region)
+        errs.append(err)
+    swapped = Box.create(box_c.minimum.flip(0), box.extent)
+    bad = deconv.up_preamble_plain(*up_args(skip * 0.01, wd_d * 0.01, wr_c, swapped))
+    miss = (bad.float() - refs["coords"].float())[union & near].abs().max().item()
+    print(f"check up_preamble {label} per-scan box corners, the corners swapped: max|d| "
+          f"{miss:.4g} > bound {tols['coords']:.4g}", flush=True)
+    if not miss > tols["coords"]:
+        raise AssertionError(f"up_preamble batched check cannot see a scan read at another "
+                             f"scan's box corner ({miss} <= {tols['coords']})")
+    del refs, bad
+    a_main = up_args(*sets[0][1])
+    got = deconv.up_preamble(*a_main, tiles=tiles)
+    pl = masked(parent, pkeep).permute(0, 4, 1, 2, 3)
+    wtl = wd.reshape(2, 2, 2, ci, co).permute(3, 4, 0, 2, 1).contiguous(
+        memory_format=torch.channels_last_3d)
+    n_child = int(child.sum())
+    t = _batch_times("up_preamble", label, (*child.shape, ci, co),
+                     lambda: deconv.up_preamble(*a_main, tiles=tiles),
+                     lambda: per_scan_up(*sets[0][1]),
+                     lambda: deconv.up_preamble_plain(*a_main),
+                     lambda: F.conv_transpose3d(pl, wtl, stride=2),
+                     n_child * (ci + co + 3) * co * 2,
+                     rows_bytes(parent, pkeep.sum()) + rows_bytes(skip, union.sum())
+                     + nbytes(pkeep, child, union, got, wd, a_main[-2]), "up_preamble",
+                     "up_preamble_kernel")
+    rows.append(dict(name=f"up_preamble (batch {B})", source="pasco_torch/csrc/up_preamble.cu",
+                     replaces="pasco_tpu/ops/pallas_deconv.py:306", max_abs_err=max(errs),
+                     case=label, kernel="up_preamble", **t))
+    return rows
+
+
+def batch_forward_check(cfg, net, scans):
+    """The forward of a batch of two of ``bench.py``'s scans (distinct box
+    corners) at the fixed 352 box against each scan's own forward, by
+    :func:`hold_runs`: the valid cells identical, the kept cells identical
+    but at bf16 near-ties of the argmax, the logits within the bf16 bound
+    (cuDNN may pick another algorithm for the bottleneck at N = 2), and
+    the extraction coords identical where no cell flipped."""
+    from pasco_torch.models.unet import scan_output, stack_inputs
+
+    inps = batch_of(scans)
+    runs = decoder_runs(net, [lambda: net(stack_inputs(inps))]
+                        + [lambda i=i: net(i) for i in inps])
+    (out_b, dense_b), singles = runs[0], runs[1:]
+    for b, (out_1, dense_1) in enumerate(singles):
+        hold_runs(f"batch of {len(inps)}, scan {b}, against its own forward",
+                  (scan_output(out_b, b), {sc: d[b] for sc, d in dense_b.items()}),
+                  (out_1, {sc: d[0] for sc, d in dense_1.items()}))
+
+
+def batch_bench_phase(cfg, net, cols):
+    """``scripts_torch/bench.py``'s batched protocol (``BENCH_BATCH``) on the
+    reference's batch scans at each of :data:`BATCH_BENCH`, B = 1 being the
+    same protocol on one scan at the same fixed box: scans/s, device ms per
+    batch, peak memory and host syncs (0) each.  Then one B = 4 forward
+    with the launch counts set to 0 just before it: rows 1-3 once per
+    forward each, as at B = 1, and ``stream_extract`` once per scan.
+    Returns those counts."""
+    from pasco_torch import kernels
+    from pasco_torch.models.unet import scene_to_model_input, stack_inputs
+
+    bench = _script("bench")
+    dev = next(net.parameters()).device
+    inps = [scene_to_model_input(c, dev) for c in cols]
+    res = {}
+    for B in BATCH_BENCH:
+        binp = stack_inputs(inps[:B])
+        res[B] = bench.run_batch(net, binp)
+        print(bench.batch_line(res[B], B, cfg.scene.box_extent), flush=True)
+        if res[B]["syncs"]:
+            raise AssertionError(f"batched forward B={B}: host syncs {res[B]['syncs']}")
+    base = res[1]["scans_per_sec"]
+    print("batched protocol: scans/s by B " + ", ".join(
+        f"{B}: {r['scans_per_sec']:.4f} ({r['scans_per_sec'] / base:.3f}x B=1)"
+        for B, r in res.items()), flush=True)
+    B = BATCH_BENCH[-1]
+    kernels.reset_launches()
+    with torch.no_grad():
+        bench.reduced(net(binp)).item()
+    launches = dict(kernels.LAUNCHES)
+    want = {k: v * (B if k == "stream_extract" else 1)
+            for k, v in forward_launch_floor(1).items()}
+    print(f"batched forward B={B}: launches {launches} (expected {want})", flush=True)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"batched forward B={B}: launches {launches}, expected {want}")
+    return launches
 
 
 def start_eval_cli(tmp):
@@ -2316,8 +2634,8 @@ def kitti360_phase(dev, cols, lap, infer):
 def run_phases(jobs, dev, lap, pool, tmp):
     """Every phase after the build (see the module docstring), on the
     scenes of ``jobs`` (futures of :func:`host_scenes`).  Returns the
-    kernel rows at 352, the rows of the smaller boxes, the launches by box
-    of the n_infers=1 bench run, those of the MIMO forward, the training
+    kernel rows at 352, the rows of the smaller boxes and of the batch of
+    two, the launches by box of the n_infers=1 bench run, those of the MIMO forward, the training
     conv's row, the launches of the n_infers 3 trainer and the launches
     of every path by name (the data-parallel step's and the KITTI-360
     forward's among them).  The host part of each ``run_scene_inference``
@@ -2372,9 +2690,18 @@ def run_phases(jobs, dev, lap, pool, tmp):
     box_rows = ladder_kernel_phase(cfg, box_scans, gen)
     alternating_extraction(cfg, {352: scans[0], **box_scans}, gen)
     lap("kernels at boxes 256, 288, 320")
+    # adaptive and fixed once each (four runs before the batched phases)
     _, per_box, _ = bench_phase(cfg, scans, net, "bench n_infers=1")
     two_boxes_check(cfg, net, by_box[288], box_of(cfg, by_box[288][0]))
     lap("bench protocol, n_infers 1")
+
+    # The batched forward (this slice): rows 1-3 on a batch in one launch,
+    # the batched forward against the per-scan ones, bench.py's BENCH_BATCH.
+    batch_rows = batch_kernel_phase(cfg, scans, gen)
+    batch_forward_check(cfg, net, scans)
+    lap(f"batched kernels and forward, B={BATCH_CHECK}")
+    batch_launches = batch_bench_phase(cfg, net, cols_of("batch"))
+    lap(f"batched bench protocol, B={', '.join(map(str, BATCH_BENCH))}")
     first = scans[0][1]
     del net, scans, box_scans, by_box     # the MIMO forward's peak holds only its own state
     torch.cuda.empty_cache()
@@ -2412,7 +2739,8 @@ def run_phases(jobs, dev, lap, pool, tmp):
             raise
         finish_eval_cli(proc, logs)
     lap("CLIs")
-    by_path = {"mimo_forward": launches, "trainer_n_infers_3": train_launches}
+    by_path = {"mimo_forward": launches, "trainer_n_infers_3": train_launches,
+               "batch": batch_launches}
     by_path["kitti360_s2_forward"] = kitti360_phase(dev, cols_of("kitti360"), lap, infer)
     by_path["dp_step_rank0"] = dp_phase(dev, cols_of("train"), lap)
     for name, fut in inferences:
@@ -2422,7 +2750,7 @@ def run_phases(jobs, dev, lap, pool, tmp):
         print(f"run_scene_inference and the Evaluator ({name}): waited "
               f"{time.perf_counter() - t0:.1f} s for the worker", flush=True)
     lap("run_scene_inference and the Evaluator at n_infers 1, 3 and 2 (the rest of them)")
-    return rows, box_rows, per_box, launches, dx_row, train_launches, by_path
+    return rows, box_rows + batch_rows, per_box, launches, dx_row, train_launches, by_path
 
 
 def main():
@@ -2452,7 +2780,8 @@ def main():
             ("scans3", ("eval", MIMO_S, BENCH_SCANS, 0)),
             ("box256", ("unaugmented", 1, 1, 3)),
             ("train", ("train", 1, 2, 0)),
-            ("kitti360", ("kitti360", KITTI360_S, 1, 0)))}
+            ("kitti360", ("kitti360", KITTI360_S, 1, 0)),
+            ("batch", ("batch", 1, BATCH_BENCH[-1], 0)))}
         t0 = time.perf_counter()
         with cf.ThreadPoolExecutor(1) as build_pool:
             build = build_pool.submit(kernels.lib)     # nvcc in subprocesses
@@ -2480,8 +2809,11 @@ def main():
     rows.append(dx_row)
     for r in rows:
         r["launches_by_path"] = {path: n.get(r["name"], 0) for path, n in by_path.items()}
-    for r in box_rows:        # launches at that box in the bench run (warm-up included)
-        r["launches"] = per_box[tuple(r.pop("box"))][r.pop("kernel")]
+    for r in box_rows:
+        if "box" in r:        # launches at that box in the bench run (warm-up included)
+            r["launches"] = per_box[tuple(r.pop("box"))][r.pop("kernel")]
+        else:                 # a batched case: launches in the batched B=4 forward
+            r["launches"] = by_path["batch"][r.pop("kernel")]
     rows += box_rows
     for r in rows:
         r["route"] = "cuda"

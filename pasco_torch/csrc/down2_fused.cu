@@ -34,6 +34,11 @@
 //     output cells in which they write zeros at the invalid cells (the mask
 //     read once into shared memory, 16-byte stores), so the output needs no
 //     memset and every cell is written once.
+//   * A batch of B scans ([B, X, Z, Y, Ci], the batched forward) is one
+//     launch: the compacted list and the zero items run over the flat
+//     output cells of all of them, and cell `o` is cell o % n of scan
+//     o / n (n output cells a scan), whose input starts b * X * Z * Y
+//     cells in.
 // Measured (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): 0.073 ms at enc_s2,
 // 57% of the bound, and faster than one stride-2 F.conv3d at enc_s2/s4; at
 // enc_s8 its 38 items of 32 steps each leave most SMs idle, and one
@@ -81,7 +86,7 @@ struct Params {
   __nv_bfloat16* out;
   const int* ids;        // valid output cells first (flat [X/2, Z/2, Y/2])
   const int* n_valid;
-  int X, Z, Y;
+  int B, X, Z, Y;
 };
 
 template <int CI, int CO>
@@ -102,7 +107,8 @@ __global__ void __launch_bounds__(THREADS, Geom<CI, CO>::CTAS) down2_kernel(cons
   const int tid = threadIdx.x, lane = tid & 31, wq = tid >> 5;
   for (int i = tid; i < 5 * CO; i += THREADS) s_vec[i] = p.vec[i / CO][i % CO];
   const int X = p.X, Z = p.Z, Y = p.Y, Z2 = Z / 2, Y2 = Y / 2;
-  const int n_out = (X / 2) * Z2 * Y2;
+  const int n_scan = (X / 2) * Z2 * Y2;   // output cells of one scan
+  const int n_out = p.B * n_scan;
   const int n_valid = *p.n_valid;
   const int n_prod = (n_valid + MR - 1) / MR * SPLIT;
   const int n_items = n_prod + (n_out + ZR - 1) / ZR;
@@ -167,8 +173,9 @@ __global__ void __launch_bounds__(THREADS, Geom<CI, CO>::CTAS) down2_kernel(cons
       int o = -1, g = 0, bits = 0;
       if (i < n_valid) {
         o = p.ids[i];
-        const int oy = o % Y2, t = o / Y2, oz = t % Z2, ox = t / Z2;
-        g = (2 * ox * Z + 2 * oz) * Y + 2 * oy;
+        const int b = o / n_scan, ol = o % n_scan;
+        const int oy = ol % Y2, t = ol / Y2, oz = t % Z2, ox = t / Z2;
+        g = b * (X * Z * Y) + (2 * ox * Z + 2 * oz) * Y + 2 * oy;
 #pragma unroll
         for (int k = 0; k < 8; ++k) bits |= (p.mask_in[g + child_off(k)] != 0) << k;
       }
@@ -247,20 +254,21 @@ int launch(const Params& p, int n_out, cudaStream_t stream) {
 }  // namespace
 
 // (Ci, Co) in {(64, 128), (128, 256), (256, 256)}; ids/n_valid: the valid
-// output cells, compacted on the device (pasco_torch/ops/down.py).
+// output cells of the B scans, compacted on the device
+// (pasco_torch/ops/down.py).
 extern "C" int pasco_down2_fused(
     const void* x, const void* mask_in, const void* mask_out, const void* w,
     const void* bias, const void* a1, const void* c1, const void* a2,
     const void* c2, void* out, const void* ids, const void* n_valid,
-    int X, int Z, int Y, int Ci, int Co, void* stream) {
-  if (X % 2 || Z % 2 || Y % 2) return (int)cudaErrorInvalidValue;
-  const int n_out = (X / 2) * (Z / 2) * (Y / 2);
+    int B, int X, int Z, int Y, int Ci, int Co, void* stream) {
+  if (X % 2 || Z % 2 || Y % 2 || B < 1) return (int)cudaErrorInvalidValue;
+  const int n_out = B * (X / 2) * (Z / 2) * (Y / 2);
   if (n_out == 0) return 0;
   const Params p{(const __nv_bfloat16*)x, (const uint8_t*)mask_in, (const uint8_t*)mask_out,
                  (const __nv_bfloat16*)w,
                  {(const float*)bias, (const float*)a1, (const float*)c1, (const float*)a2,
                   (const float*)c2},
-                 (__nv_bfloat16*)out, (const int*)ids, (const int*)n_valid, X, Z, Y};
+                 (__nv_bfloat16*)out, (const int*)ids, (const int*)n_valid, B, X, Z, Y};
   cudaStream_t st = (cudaStream_t)stream;
   if (Ci == 64 && Co == 128) return launch<64, 128>(p, n_out, st);
   if (Ci == 128 && Co == 256) return launch<128, 256>(p, n_out, st);

@@ -49,7 +49,10 @@
 //     as its own wgmma group, so the next ldmatrix overlaps the running
 //     products; one __syncthreads per tap frees the ring slot.
 //   * Persistent CTAs (SMs x resident CTAs) walk the device-built tile list
-//     (active tiles first, their count on the device: no host sync).  At
+//     (active tiles first, their count on the device: no host sync).  A
+//     batch of B scans ([B, X, Z, Y, C], the batched forward) is one list
+//     over all of them: tile id `id` is tile id % n of scan id / n (n tiles
+//     a scan), whose volumes start b * X * Z * Y cells in.  At
 //     C = 64 two CTAs share an SM (3 ring slots each), so one CTA's halo
 //     staging and epilogue overlap the other's products; at C = 128 and
 //     256 one CTA holds a deeper ring (8 slots).  Inactive tiles are
@@ -193,9 +196,15 @@ __global__ void __launch_bounds__(THREADS, Cfg<C>::CTAS) masked_conv3_kernel(con
 
   float acc[MB][N / 2];
 
+  const int per_scan = (X + TX - 1) / TX * nbz * nby;   // tiles of one scan
+
   // Work item `it` is output channels n0..n0+N of tile tile_ids[it / SPLIT].
   for (int it = blockIdx.x; it < p.n_tiles * SPLIT; it += gridDim.x) {
-    const int tile = p.tile_ids[it / SPLIT], n0 = (it % SPLIT) * N;
+    const int id = p.tile_ids[it / SPLIT], n0 = (it % SPLIT) * N;
+    const int tile = id % per_scan;
+    const long long e0 = (long long)(id / per_scan) * X * Z * Y;   // the scan's first cell
+    const __nv_bfloat16* const x = p.x + e0 * C;
+    const uint8_t* const mask = p.mask + e0;
     const int y0 = (tile % nby) * TY, z0 = ((tile / nby) % nbz) * TZ;
     const int x0 = (tile / (nby * nbz)) * TX;
     __syncthreads();   // the last tile's readers of the halo and ring are done
@@ -205,8 +214,8 @@ __global__ void __launch_bounds__(THREADS, Cfg<C>::CTAS) masked_conv3_kernel(con
         const int row = v / (N / 8), c = v % (N / 8), line = row / TY;
         const int gx = x0 + line / TZ, gz = z0 + line % TZ, gy = y0 + row % TY;
         if (gx < X && gz < Z && gy < Y)
-          *reinterpret_cast<uint4*>(p.out + (((long long)gx * Z + gz) * Y + gy) * C + n0 +
-                                    c * 8) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(p.out + (e0 + ((long long)gx * Z + gz) * Y + gy) * C +
+                                    n0 + c * 8) = make_uint4(0, 0, 0, 0);
       }
       continue;
     }
@@ -221,7 +230,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<C>::CTAS) masked_conv3_kernel(con
       const int hy = cell % HY, hz = (cell / HY) % HZ, hx = cell / (HY * HZ);
       const int gx = x0 - 1 + hx, gz = z0 - 1 + hz, gy = y0 - 1 + hy;
       flags[cell] = gx >= 0 && gx < X && gz >= 0 && gz < Z && gy >= 0 && gy < Y &&
-                    p.mask[((long long)gx * Z + gz) * Y + gy] != 0;
+                    mask[((long long)gx * Z + gz) * Y + gy] != 0;
     }
     __syncthreads();
 #pragma unroll
@@ -239,7 +248,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<C>::CTAS) masked_conv3_kernel(con
       for (int v = tid; v < CELLS * 8; v += THREADS) {
         const int cell = v >> 3, part = v & 7;
         const bool ok = flags[cell];
-        const __nv_bfloat16* src = p.x;
+        const __nv_bfloat16* src = x;
         if (ok) {
           const int hy = cell % HY, hz = (cell / HY) % HZ, hx = cell / (HY * HZ);
           src += (((long long)(x0 - 1 + hx) * Z + (z0 - 1 + hz)) * Y + (y0 - 1 + hy)) * C +
@@ -355,7 +364,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<C>::CTAS) masked_conv3_kernel(con
         const bool in_box = gx < X && gz < Z && gy < Y;
         const bool valid = in_box && flags[((L / TZ + 1) * HZ + (L % TZ + 1)) * HY + ty + 1];
         // -1: out of the box (no store); -2 - g: a masked cell (zeros)
-        const long long g = ((long long)gx * Z + gz) * Y + gy;
+        const long long g = e0 + ((long long)gx * Z + gz) * Y + gy;
         gidx[mb][h] = !in_box ? -1 : valid ? g : -2 - g;
 #pragma unroll
         for (int j = 0; j < N / 8; ++j)
@@ -415,12 +424,16 @@ int launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // C = Ci = Co in {64, 128, 256}; flip != 0 runs the data-gradient mode.
+// B scans of [X, Z, Y, C] one after another; n_tiles = B * the tiles of a
+// scan (pasco_torch/ops/conv.py:conv_tiles).
 extern "C" int pasco_masked_conv3(
     const void* x, const void* mask, const void* w, const void* bias,
     const void* aff_a, const void* aff_c, const void* skip, void* out,
-    const void* tile_ids, const void* n_active, int X, int Z, int Y, int C,
+    const void* tile_ids, const void* n_active, int B, int X, int Z, int Y, int C,
     int flip, int relu_in, int relu_out, int n_tiles, void* stream) {
   if (n_tiles == 0) return 0;
+  if (B < 1 || n_tiles != B * ((X + TX - 1) / TX) * ((Z + TZ - 1) / TZ) * ((Y + TY - 1) / TY))
+    return (int)cudaErrorInvalidValue;
   const Params p{(const __nv_bfloat16*)x, (const uint8_t*)mask, (const __nv_bfloat16*)w,
                  (const float*)bias, (const float*)aff_a, (const float*)aff_c,
                  (const __nv_bfloat16*)skip, (__nv_bfloat16*)out, (const int*)tile_ids,

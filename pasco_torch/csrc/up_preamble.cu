@@ -22,7 +22,10 @@
 //   * Persistent CTAs walk the device-built list of 64-parent tiles (active
 //     first, their count on the device); a warpgroup owns a tile (one m64
 //     block) and all Co.  Inactive tiles are written as zeros, so the output
-//     needs no memset.
+//     needs no memset.  A batch of B scans (the batched forward) is one list
+//     over all of them: tile id `id` is tile id % n of scan b = id / n (n
+//     tiles a scan), whose volumes start b times a scan's cells in and
+//     whose coordinates come from its own box corner box_min[b].
 //   * Weights in shared memory as [64 x N] slabs (N = min(Co, 128)),
 //     128-byte swizzled.  dec_s1: all of wd and wr stay resident for the
 //     CTA's life (136 KB) and its three warpgroups walk their own tiles
@@ -114,7 +117,7 @@ struct Params {
   __nv_bfloat16* out;
   const int* tile_ids;
   const int* n_active;
-  int X2, Z2, Y2, scale, n_tiles;
+  int B, X2, Z2, Y2, scale, n_tiles;
 };
 
 template <int CI, int CO>
@@ -147,7 +150,7 @@ __global__ void __launch_bounds__(Geom<CI, CO>::THREADS, 1) up_preamble_kernel(c
   float* s_a2 = s_c1 + CO;
   float* s_c2 = s_a2 + CO;
   float* s_br = s_c2 + CO;
-  float* s_ca = s_br + CO;           // a2, c2 of the coordinate channels, box_min
+  float* s_ca = s_br + CO;           // a2, c2 of the coordinate channels
   const uint32_t slabs = smem_u32(smem), cw_s = smem_u32(cw);
   const uint32_t par_s = smem_u32(par), io_s = smem_u32(io);
 
@@ -171,11 +174,11 @@ __global__ void __launch_bounds__(Geom<CI, CO>::THREADS, 1) up_preamble_kernel(c
   if (tid < 3) {
     s_ca[tid] = p.a2[CO + tid];
     s_ca[3 + tid] = p.c2[CO + tid];
-    s_ca[6 + tid] = (float)p.box_min[tid];
   }
 
   const int X2 = p.X2, Z2 = p.Z2, Y2 = p.Y2, Z = 2 * Z2, Y = 2 * Y2;
-  const int n_par = X2 * Z2 * Y2;
+  const int n_par = X2 * Z2 * Y2;               // parents of one scan
+  const int per_scan = p.n_tiles / p.B;         // tiles of one scan
   const int n_active = *p.n_active;
   auto child_off = [&](int k) { return (k >> 2) * Z * Y + (k & 1) * Y + ((k >> 1) & 1); };
 
@@ -258,17 +261,21 @@ __global__ void __launch_bounds__(Geom<CI, CO>::THREADS, 1) up_preamble_kernel(c
   for (int u = u0; u < n_units; u += du) {
     const int tile = RESIDENT ? u : u * WGS + wg;
     const bool present = tile < p.n_tiles, active = tile < n_active;
-    const int p0 = present ? p.tile_ids[tile] * TP : n_par;
+    const int id = present ? p.tile_ids[tile] : 0;
+    const int b = id / per_scan;                 // the tile's scan
+    const int p0 = present ? (id % per_scan) * TP : n_par;   // its first parent in the scan
+    const int pb = b * n_par;   // the scan's first parent; its first child cell is 8 * pb
     tile_sync();   // the last tile's readers of the row info, parents and io are done
     // Per parent: its child (0,0,0) cell, child and union bits, and the
     // resize A values of its children's coordinate channels (axis j, child
-    // offset o along it): bf16(a2 * bf16((min + scale * cell) / scale) + c2).
+    // offset o along it): bf16(a2 * bf16((min + scale * cell) / scale) + c2),
+    // min the scan's box corner.  g0 counts the cells of the scans before.
     if (wtid < TP) {
       const int q = p0 + wtid;
       int g0 = -1, bits = 0;
       if (q < n_par) {
         const int py = q % Y2, r = q / Y2, pz = r % Z2, px = r / Z2;
-        g0 = (2 * px * Z + 2 * pz) * Y + 2 * py;
+        g0 = 8 * pb + (2 * px * Z + 2 * pz) * Y + 2 * py;
         if (active) {
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
@@ -280,8 +287,8 @@ __global__ void __launch_bounds__(Geom<CI, CO>::THREADS, 1) up_preamble_kernel(c
           for (int j = 0; j < 3; ++j)
 #pragma unroll
             for (int o = 0; o < 2; ++o) {
-              const float u =
-                  rbf((s_ca[6 + j] + (float)(p.scale * (2 * pc[j] + o))) / (float)p.scale);
+              const float u = rbf(((float)p.box_min[3 * b + j] +
+                                   (float)(p.scale * (2 * pc[j] + o))) / (float)p.scale);
               s_cA[wtid * 6 + j * 2 + o] = rbf(s_ca[j] * u + s_ca[3 + j]);
             }
         }
@@ -304,9 +311,9 @@ __global__ void __launch_bounds__(Geom<CI, CO>::THREADS, 1) up_preamble_kernel(c
     // The masked parent rows: [Ci / 64 chunks][64 rows][128 B].
     for (int v = wtid; v < TP * (CI / 8); v += 128) {
       const int R = v / (CI / 8), c = v % (CI / 8), q = p0 + R;
-      const bool ok = q < n_par && p.keep[q];
+      const bool ok = q < n_par && p.keep[pb + q];
       cp_async16(par_s + (c >> 3) * 8192 + swz(R, c),
-                 ok ? p.parent + (long long)q * CI + c * 8 : p.parent, ok ? 16 : 0);
+                 ok ? p.parent + (long long)(pb + q) * CI + c * 8 : p.parent, ok ? 16 : 0);
     }
     cp_async_commit();
 #pragma unroll
@@ -482,22 +489,24 @@ int launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // (Ci, Co) in {(128, 64), (256, 128), (256, 256)}; tiles of 64 flat
-// parents (pasco_torch/ops/deconv.py:up_tiles).
+// parents of each of the B scans (pasco_torch/ops/deconv.py:up_tiles);
+// box_min [B, 3].
 extern "C" int pasco_up_preamble(
     const void* parent, const void* parent_keep, const void* child_mask,
     const void* union_mask, const void* skip, const void* wd, const void* bd,
     const void* a1, const void* c1, const void* a2, const void* c2,
     const void* wr, const void* br, const void* box_min, void* out,
-    const void* tile_ids, const void* n_active, int X2, int Z2, int Y2, int Ci,
+    const void* tile_ids, const void* n_active, int B, int X2, int Z2, int Y2, int Ci,
     int Co, int scale, int n_tiles, void* stream) {
   if (n_tiles == 0) return 0;
+  if (B < 1 || n_tiles != B * ((X2 * Z2 * Y2 + TP - 1) / TP)) return (int)cudaErrorInvalidValue;
   const Params p{(const __nv_bfloat16*)parent, (const uint8_t*)parent_keep,
                  (const uint8_t*)child_mask, (const uint8_t*)union_mask,
                  (const __nv_bfloat16*)skip, (const __nv_bfloat16*)wd, (const float*)bd,
                  (const float*)a1, (const float*)c1, (const float*)a2, (const float*)c2,
                  (const __nv_bfloat16*)wr, (const float*)br, (const int*)box_min,
                  (__nv_bfloat16*)out, (const int*)tile_ids, (const int*)n_active,
-                 X2, Z2, Y2, scale, n_tiles};
+                 B, X2, Z2, Y2, scale, n_tiles};
   cudaStream_t st = (cudaStream_t)stream;
   if (Ci == 128 && Co == 64) return launch<128, 64>(p, st);
   if (Ci == 256 && Co == 128) return launch<256, 128>(p, st);

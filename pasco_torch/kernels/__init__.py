@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -44,15 +45,15 @@ U = ctypes.c_uint
 # C signature of every entry point (all return cudaError_t as int).
 _SIGNATURES = {
     # x, mask, w, bias, aff_a, aff_c, skip, out, tile_ids, n_active,
-    # X, Z, Y, C, flip, relu_in, relu_out, n_tiles, stream
-    "pasco_masked_conv3": [P] * 10 + [I] * 8 + [P],
+    # B, X, Z, Y, C, flip, relu_in, relu_out, n_tiles, stream
+    "pasco_masked_conv3": [P] * 10 + [I] * 9 + [P],
     # x, mask_in, mask_out, w, bias, a1, c1, a2, c2, out, ids, n_valid,
-    # X, Z, Y, Ci, Co, stream
-    "pasco_down2_fused": [P] * 12 + [I] * 5 + [P],
+    # B, X, Z, Y, Ci, Co, stream
+    "pasco_down2_fused": [P] * 12 + [I] * 6 + [P],
     # parent, parent_keep, child_mask, union_mask, skip, wd, bd, a1, c1,
     # a2, c2, wr, br, box_min, out, tile_ids, n_active,
-    # X2, Z2, Y2, Ci, Co, scale, n_tiles, stream
-    "pasco_up_preamble": [P] * 17 + [I] * 7 + [P],
+    # B, X2, Z2, Y2, Ci, Co, scale, n_tiles, stream
+    "pasco_up_preamble": [P] * 17 + [I] * 8 + [P],
     # keep, payload, n, E, cap, ws, ws_tiles, epoch, vals, src, valid,
     # total, stream
     "pasco_stream_extract": [P, P, L, I, I, P, I, U, P, P, P, P, P],
@@ -143,6 +144,26 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = dll
     return _lib
+
+
+_CASTS: Dict[int, tuple] = {}
+
+
+def cast_once(t: torch.Tensor, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor on ``device``, converted once
+    per version of ``t`` (a parameter is converted again after an in-place
+    update, which bumps its version, or when its data is replaced); the
+    copy is dropped with ``t``."""
+    if t.device == device and t.dtype == dtype and t.is_contiguous():
+        return t
+    key = id(t)
+    stamp = (t._version, t.data_ptr(), device, dtype)   # in place, or new data
+    hit = _CASTS.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == stamp:
+        return hit[2]
+    out = t.detach().to(device=device, dtype=dtype).contiguous()
+    _CASTS[key] = (weakref.ref(t, lambda _, k=key: _CASTS.pop(k, None)), stamp, out)
+    return out
 
 
 def check(err: int, name: str) -> None:

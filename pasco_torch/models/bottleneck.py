@@ -2,8 +2,9 @@
 ``pasco_tpu/models/bottleneck.py:148-218``: ``_Conv3d``, ``SPCDense3D``).
 
 The reference runs these anisotropic convs as XLA, not Pallas, so the port
-runs them as ``F.conv3d``.  Volumes are ``[X, Y, Z, C]`` here, as in the
-reference module.
+runs them as ``F.conv3d``.  Volumes are ``[B, X, Y, Z, C]`` here (the
+reference module's ``[X, Y, Z, C]`` with the scans of a batch in front), and
+each conv runs once over the batch at N = B.
 """
 
 from __future__ import annotations
@@ -24,12 +25,11 @@ class Conv3d(nn.Module):
         self.kernel = nn.Parameter(torch.zeros((*kernel, ch, ch)))
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype):
-        """``x [X, Y, Z, C]`` f32 -> f32; operands in ``compute_dtype``."""
+        """``x [B, X, Y, Z, C]`` f32 -> f32; operands in ``compute_dtype``."""
         w = self.kernel.to(compute_dtype).permute(4, 3, 0, 1, 2)
         pad = tuple(k // 2 for k in self.kernel.shape[:3])
-        out = F.conv3d(x.to(compute_dtype).permute(3, 0, 1, 2)[None], w,
-                       padding=pad)
-        return out[0].permute(1, 2, 3, 0).float()
+        out = F.conv3d(x.to(compute_dtype).permute(0, 4, 1, 2, 3), w, padding=pad)
+        return out.permute(0, 2, 3, 4, 1).float()
 
 
 class SPCDense3D(nn.Module):

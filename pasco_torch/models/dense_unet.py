@@ -32,6 +32,17 @@ point into its subnet's lane block of the ``S * f``-wide ``enc_in`` input,
 the heads emit ``S * K`` logits, and each subnet runs its own refiner on
 its own keep set and its own query set in the transformer.
 
+A batch of ``B`` scans (every array of the ``ModelInput`` with a leading
+``B``: the stacked input that the reference's ``bench.py`` runs through
+``jax.vmap``) runs through the same body at once: every volume and mask
+carries ``B`` in front, the box has one corner per scan, rows 1-3 take the
+whole batch in one launch each, each extraction launches once per scan
+(``capacity`` rows each), the bottleneck's convs run at N = B and the
+transformer's products are batched over the scans.  One scan is the case
+``B = 1``, with the batch axis taken off the outputs.  The batch is an
+inference path, as the reference's only batched caller is: at ``B > 1``
+training mode and MC dropout raise.
+
 Dropout follows the reference's ``drop_on = train or mc_dropout``
 (``dense_unet.py:1102-1105``): in training mode, and at inference under
 ``mc_dropout=True`` (MC dropout: BatchNorm keeps its running statistics
@@ -60,7 +71,7 @@ from pasco_torch.models.blocks import ConvParams
 from pasco_torch.models.bottleneck import SPCDense3D
 from pasco_torch.models.norm import BatchNorm, masked_sums
 from pasco_torch.models.transformer import TransformerPredictor
-from pasco_torch.models.unet import ModelInput, ModelOutput
+from pasco_torch.models.unet import ModelInput, ModelOutput, scan_output
 from pasco_torch.ops.conv import MaskedConv3Fn, conv_tiles, masked_conv3
 from pasco_torch.ops.deconv import up_preamble, up_tiles
 from pasco_torch.ops.dense_ops import (
@@ -139,7 +150,7 @@ class PointMLP(nn.Module):
         f = torch.relu(self.bn2(self.fc2(f), pm))
         f = torch.relu(self.bn3(self.fc3(f), pm))
         f = self.fc4(f)
-        return torch.where(pm[:, None], f, torch.zeros((), device=f.device))
+        return torch.where(pm[..., None], f, torch.zeros((), device=f.device))
 
 
 class DenseResBlock(nn.Module):
@@ -237,11 +248,14 @@ class DenseDecoderStage(nn.Module):
 
     def forward(self, x, parent_keep, skip, skip_mask, box, gmin, gmax,
                 generator=None, live=False):
+        """Volumes ``[B, X, Z, Y, C]``, masks ``[B, X, Z, Y]``, ``box`` and
+        ``gmin``/``gmax`` one row per scan; training takes one scan."""
         msk_child = upsample2_mask(parent_keep) & bbox_mask(
             box, self.scale, gmin, gmax)
         msk = msk_child | skip_mask
         if self.training:
-            x = self._preamble_train(x, parent_keep, msk_child, skip, box)
+            x = self._preamble_train(x[0], parent_keep[0], msk_child[0], skip[0],
+                                     Box(box.minimum[0], box.extent))[None]
         else:
             x = up_preamble(
                 x, parent_keep, msk_child, msk, skip, box, self.scale,
@@ -302,14 +316,14 @@ class DenseDecoderStage(nn.Module):
         dropped one), then the per-subnet sem heads.  The logits are
         rounded to bf16 and the argmax reads the ROUNDED logits, like the reference
         (``dense_unet.py:898-915, 951-968``): extraction sets depend on the
-        tie rule.  Returns (x, sem [X,Z,Y,S,K] bf16, top_class [X,Z,Y,S],
-        top_prob [X,Z,Y,S] bf16 (training only, else None), msk)."""
+        tie rule.  Returns (x, sem [B,X,Z,Y,S,K] bf16, top_class
+        [B,X,Z,Y,S], top_prob [B,X,Z,Y,S] bf16 (training only, else None),
+        msk)."""
         x = _drop(self, "drop", x, generator, live)
         S, ch, K = self.head_kernel.shape
-        X, Z, Y, _ = x.shape
         w = self.head_kernel.to(x.dtype).float().permute(1, 0, 2).reshape(ch, S * K)
         sem = x.reshape(-1, ch).float() @ w + self.head_bias.reshape(-1)
-        sem = sem.to(torch.bfloat16).reshape(X, Z, Y, S, K)
+        sem = sem.to(torch.bfloat16).reshape(*x.shape[:-1], S, K)
         top_class = sem.argmax(dim=-1).to(torch.int32)
         top_prob = None
         if self.training:
@@ -445,9 +459,9 @@ class DensePaSCoNet(nn.Module):
                 mc_dropout: bool = False,
                 is_predict_panop: bool = True,
                 box_extent: Optional[Tuple[int, int, int]] = None) -> ModelOutput:
-        """One scene.  In training mode (``self.training``) ``labelweights``
-        (scale -> [n_classes] completion weights) weight the decoder caps'
-        sampling scores, and ``generator`` (on the input's device) draws the
+        """One scene, or a batch of scenes (below).  In training mode
+        (``self.training``) ``labelweights`` (scale -> [n_classes]
+        completion weights) weight the decoder caps' sampling scores, and ``generator`` (on the input's device) draws the
         dropouts and the caps' Gumbel noise.  ``mc_dropout=True`` keeps
         every dropout live at inference (MC dropout, ``pasco_tpu/training/
         step.py:324-341``); different generators give different samples.
@@ -457,15 +471,35 @@ class DensePaSCoNet(nn.Module):
         ``sem_logits_pruned`` zero and ``predictor`` None.  ``box_extent``
         is the working box of this call (``cfg.scene.box_extent`` by
         default); :class:`~pasco_torch.inference.dispatch.AdaptiveForward`
-        picks it per scan from ``cfg.scene.box_candidates``."""
+        picks it per scan from ``cfg.scene.box_candidates``.
+
+        A ``ModelInput`` whose arrays carry a leading ``B``
+        (:func:`~pasco_torch.models.unet.stack_inputs`) is a batch of scans
+        in one box: every tensor of the returned ``ModelOutput`` carries
+        that ``B`` in front, as ``jax.vmap(net.apply)`` returns it
+        (:func:`~pasco_torch.models.unet.scan_output` takes scan ``b``).
+        At ``B > 1`` the call must be an inference (``net.eval()``, no
+        ``mc_dropout``)."""
+        batched = inp.point_feats.dim() == 3
+        if batched and inp.point_feats.shape[0] > 1 and (self.training or mc_dropout):
+            raise ValueError("a batch of scans (B > 1) runs at inference only: not in "
+                             "training mode or under mc_dropout")
+        out = self._forward(inp if batched else ModelInput(*(t[None] for t in inp)),
+                            labelweights, generator, mc_dropout, is_predict_panop, box_extent)
+        return out if batched else scan_output(out, 0)
+
+    def _forward(self, inp: ModelInput, labelweights, generator, mc_dropout: bool,
+                 is_predict_panop: bool, box_extent) -> ModelOutput:
+        """The forward on a batch of ``B`` scans (``B = 1`` for one)."""
         train = self.training
         live = train or mc_dropout
         cfg = self.cfg
         m = cfg.model
         cap = cfg.capacity
         S = m.n_infers
+        B = inp.point_feats.shape[0]
         cd = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
-        box = Box.create(inp.global_min, box_extent or cfg.scene.box_extent)
+        box = Box.create(inp.global_min, box_extent or cfg.scene.box_extent)   # [B, 3]
         ex, ey, ez = box.extent
 
         # ---- point MLP + scatter-max featurizer --------------------------
@@ -473,16 +507,16 @@ class DensePaSCoNet(nn.Module):
         if live and m.encoder_dropouts[0] > 0.0:
             pm = point_dropout(pm, m.encoder_dropouts[0], generator)
         f = self.point_mlp(inp.point_feats, pm)
-        rel = inp.point_coords[:, 1:] - box.minimum[None, :]
-        in_box = (pm & (rel >= 0).all(-1) & (rel[:, 0] < ex)
-                  & (rel[:, 1] < ey) & (rel[:, 2] < ez))
+        rel = inp.point_coords[..., 1:] - box.minimum[:, None, :]
+        in_box = (pm & (rel >= 0).all(-1) & (rel[..., 0] < ex)
+                  & (rel[..., 1] < ey) & (rel[..., 2] < ez))
         # One row per (cell, subnet): subnet s lands in lane block s of the
         # S * f-wide enc_in input (dense_unet.py:1202-1216; the packed form
         # :1165-1167 has the same order per z-slot).  Every empty (cell,
         # subnet) row is zero, not only empty cells: a cell that one subnet
         # occupies and another does not is mask-valid, and enc_in mixes its
         # lane blocks (dense_unet.py:1178-1189).
-        subnet = inp.point_coords[:, 0].clamp(0, S - 1)
+        subnet = inp.point_coords[..., 0].clamp(0, S - 1)
         x, occ = scatter_points(f, rel, in_box, subnet, S, box.extent, cd)
         mask1 = occ.any(-1)
 
@@ -495,10 +529,10 @@ class DensePaSCoNet(nn.Module):
             x, msk = getattr(self, f"enc_s{stride}")(*enc[stride // 2])
             enc[stride] = (_drop(self, f"enc_drop_s{stride}", x, generator, live), msk)
 
-        # ---- dense bottleneck at stride 8 ([X, Y, Z] inside) --------------
-        x8 = enc[8][0].permute(0, 2, 1, 3).float()
+        # ---- dense bottleneck at stride 8 ([B, X, Y, Z] inside) -----------
+        x8 = enc[8][0].permute(0, 1, 3, 2, 4).float()
         xb = _remat(m.remat and train, self.bottleneck, x8, cd)
-        xb = _drop(self, "dense3d_drop", xb.to(cd), generator, live).permute(0, 2, 1, 3)
+        xb = _drop(self, "dense3d_drop", xb.to(cd), generator, live).permute(0, 1, 3, 2, 4)
         mask8 = bbox_mask(box, 8, inp.global_min, inp.global_max)
         x = torch.where(mask8[..., None], xb, torch.zeros((), dtype=cd,
                                                           device=xb.device)).contiguous()
@@ -528,23 +562,23 @@ class DensePaSCoNet(nn.Module):
             # Inference reads scale 1's logits only; training supervises all
             # three.  The grids' features have no consumer (zeros, as in
             # the reference).
-            payload = sem.reshape(*sem.shape[:3], -1)
+            payload = sem.reshape(*sem.shape[:-2], -1)
             if train:
                 coords, valid, vals = extract_sparse_train(keep, box, scale, dcap, payload)
             else:
                 coords, valid, vals = extract_sparse(
                     keep, box, scale, dcap, payload if scale == 1 else None)
-            feats = torch.zeros((dcap, x.shape[-1]), dtype=x.dtype, device=x.device)
+            feats = torch.zeros((B, dcap, x.shape[-1]), dtype=x.dtype, device=x.device)
             xs[scale] = SparseGrid(coords, feats, valid, scale)
             sem_at[scale] = (
-                vals.float().reshape(dcap, S, m.n_classes) if train or scale == 1
-                else torch.zeros((dcap, S, m.n_classes), device=x.device)
+                vals.float().reshape(B, dcap, S, m.n_classes) if train or scale == 1
+                else torch.zeros((B, dcap, S, m.n_classes), device=x.device)
             )
             parent_keep = keep
 
         # ---- per-subnet refiners + extraction ------------------------------
         panop_grids: Dict[int, SparseGrid] = {}
-        sem_pruned = torch.zeros((S, cap.panop_s1, m.n_classes), device=x.device)
+        sem_pruned = torch.zeros((B, S, cap.panop_s1, m.n_classes), device=x.device)
         for scale in (4, 2, 1) if is_predict_panop else ():
             xd, sem, top_class, dkeep = dense[scale]
             refiner = getattr(self, f"voxel_feats_s{scale}")
@@ -552,7 +586,7 @@ class DensePaSCoNet(nn.Module):
             sub, sub_sem = [], []
             for s in range(S):
                 keep_s = ((top_class[..., s] != 0) & dkeep & bbox_mask(
-                    box, scale, inp.subnet_min[s], inp.subnet_max[s]))
+                    box, scale, inp.subnet_min[:, s], inp.subnet_max[:, s]))
                 refined = _remat(m.remat and train, refiner, xd, keep_s, s,
                                  _tiles(conv_tiles, keep_s))
                 if train:
@@ -564,11 +598,11 @@ class DensePaSCoNet(nn.Module):
                 else:
                     coords, valid, vals = extract_sparse(
                         keep_s, box, scale, pcap, refined)
-                coords[:, 0] = s
+                coords[..., 0] = s
                 sub.append(SparseGrid(coords, vals, valid, scale))
-            panop_grids[scale] = stack_grids(sub)
+            panop_grids[scale] = stack_grids(sub, dim=1)      # [B, S, cap, ...]
             if sub_sem:
-                sem_pruned = torch.stack(sub_sem)
+                sem_pruned = torch.stack(sub_sem, 1)
 
         return ModelOutput(
             sem_grids=xs,

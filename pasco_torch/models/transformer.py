@@ -2,7 +2,11 @@
 (counterpart of ``pasco_tpu/models/transformer.py:43-286``).
 
 The attention layers' parameters are shared by every subnet
-(``transformer.py:255-272``); subnets run one after another.  Where the
+(``transformer.py:255-272``); subnets run one after another.  The grids
+carry a batch of scans in front (``[B, S, cap, ...]``, the batched forward;
+``B = 1`` for one scan): each subnet's attention runs on all ``B`` scans at
+once, as batched products in which every scan's queries attend only its
+own voxels, and the outputs keep ``[B, S, ...]``.  Where the
 caller says the dropout is live (training, or MC dropout at inference,
 ``transformer.py:194-200``) the residual branches take ``cfg.dropout``
 (0.0 in the flagship), with draws from the caller's generator.  The
@@ -37,19 +41,19 @@ def dropout(x: torch.Tensor, rate: float, live: bool,
 
 def sine_position_encoding(coords: torch.Tensor, num_pos_feats: int,
                            temperature: float = 10000.0) -> torch.Tensor:
-    """Sparse sine PE on ``[N, 3]`` integer coordinates -> ``[N, 3*npf]``."""
+    """Sparse sine PE on ``[..., N, 3]`` integer coordinates -> ``[..., N, 3*npf]``."""
     c = coords.float()
     c = c / (c + 1e-6) * (2 * math.pi)
     half = torch.arange(num_pos_feats // 2, dtype=torch.float32,
                         device=coords.device)
     dim_h = temperature ** (2 * half / num_pos_feats)
-    pos = c[:, :, None] / dim_h[None, None, :]
+    pos = c[..., None] / dim_h
     pe = torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
-    return pe.reshape(coords.shape[0], 3 * num_pos_feats)
+    return pe.reshape(*coords.shape[:-1], 3 * num_pos_feats)
 
 
 class PredictorOutput(NamedTuple):
-    query_logits: torch.Tensor        # [S, Q, n_classes + 1]
+    query_logits: torch.Tensor        # [S, Q, n_classes + 1] ([B, S, ...] for a batch)
     voxel_logits: torch.Tensor        # [S, cap1, Q]
     aux: List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -114,20 +118,28 @@ class FFNLayer(nn.Module):
 def downscale_attn_allowed(mask_pred: torch.Tensor, grid1: SparseGrid,
                            grid_s: SparseGrid, box: Box,
                            scale: int) -> torch.Tensor:
-    """Allowed[n_s, q] = any scale-1 child of voxel n_s has sigmoid > 0.5."""
-    keep = (torch.sigmoid(mask_pred) > 0.5) & grid1.mask[:, None]
+    """Allowed[n_s, q] = any scale-1 child of voxel n_s has sigmoid > 0.5.
+    Grids with leading axes (``[B, N, 4]``, ``mask_pred [B, N1, Q]``, a
+    ``[B, 3]`` box corner) give one ``[N_s, Q]`` set per scan."""
+    keep = (torch.sigmoid(mask_pred) > 0.5) & grid1.mask[..., None]
     if scale == 1:
         return keep
     step = grid1.stride * scale
-    parent_xyz = torch.div(grid1.coords[:, 1:], step, rounding_mode="floor") * step
-    parents = torch.cat([grid1.coords[:, :1], parent_xyz], dim=-1)
+    parent_xyz = torch.div(grid1.coords[..., 1:], step, rounding_mode="floor") * step
+    parents = torch.cat([grid1.coords[..., :1], parent_xyz], dim=-1)
     table = build_dense_table(grid_s.coords, grid_s.mask, box, grid_s.stride)
     row, found = lookup_dense_table(table, parents, grid1.mask, box, grid_s.stride)
-    row = torch.where(found, row, torch.full_like(row, grid_s.capacity)).long()
-    hits = torch.zeros((grid_s.capacity + 1, keep.shape[1]), dtype=torch.int32,
+    cap, nq = grid_s.capacity, keep.shape[-1]
+    lead = keep.shape[:-2]
+    row = torch.where(found, row, torch.full_like(row, cap)).long()
+    # scan e's rows of `hits` follow those of the scans before it
+    first = torch.arange(math.prod(lead), device=row.device) * (cap + 1)
+    row = row + first.reshape(*lead, 1)
+    hits = torch.zeros((math.prod(lead) * (cap + 1), nq), dtype=torch.int32,
                        device=keep.device)
-    hits.index_add_(0, row, keep.to(torch.int32))
-    return (hits[: grid_s.capacity] > 0) & grid_s.mask[:, None]
+    hits.index_add_(0, row.reshape(-1), keep.reshape(-1, nq).to(torch.int32))
+    hits = hits.reshape(*lead, cap + 1, nq)
+    return (hits[..., :cap, :] > 0) & grid_s.mask[..., None]
 
 
 class TransformerPredictor(nn.Module):
@@ -152,15 +164,27 @@ class TransformerPredictor(nn.Module):
     def forward(self, panop_grids: Dict[int, SparseGrid], box: Box,
                 generator: Optional[torch.Generator] = None,
                 live: bool = False) -> PredictorOutput:
+        """``panop_grids``: scale -> grid of ``[B, S, cap, ...]`` (``box``
+        minimum ``[B, 3]``); the outputs are ``[B, S, ...]``.  The
+        ``B * S`` (scan, subnet) rows run as one group ``G`` wherever
+        nothing reads across rows (the projections, the heads, the FFN)."""
         cfg = self.cfg
         S = self.n_infers
         npf = cfg.hidden_dim // 3
         grid1 = panop_grids[1]
-        pe1 = torch.stack([
-            sine_position_encoding(grid1.coords[s, :, 1:], npf) for s in range(S)
-        ])
-        voxel_feat = self.mask_feat_proj(grid1.feats.float()) + pe1
-        voxel_feat = torch.where(grid1.mask[..., None], voxel_feat,
+        B = grid1.coords.shape[0]
+        G = B * S
+
+        def rows(t):   # [B, S, ...] -> [G, ...]
+            return t.reshape(G, *t.shape[2:])
+
+        def subnet(g: SparseGrid, s: int) -> SparseGrid:   # subnet s of every scan
+            return SparseGrid(g.coords[:, s], g.feats[:, s], g.mask[:, s], g.stride)
+
+        mask1 = rows(grid1.mask)
+        pe1 = sine_position_encoding(rows(grid1.coords)[..., 1:], npf)
+        voxel_feat = self.mask_feat_proj(rows(grid1.feats).float()) + pe1
+        voxel_feat = torch.where(mask1[..., None], voxel_feat,
                                  torch.zeros((), device=voxel_feat.device))
 
         def pred_heads(output):
@@ -168,34 +192,41 @@ class TransformerPredictor(nn.Module):
             cls = self.class_embed(dec)
             emb = self.mask_embed(dec)
             msk = torch.einsum("sqc,spc->spq", emb, voxel_feat)
-            msk = torch.where(grid1.mask[..., None], msk,
+            msk = torch.where(mask1[..., None], msk,
                               torch.zeros((), device=msk.device))
             return cls, msk
 
-        output = self.query_feat
+        output = self.query_feat if B == 1 else self.query_feat.repeat(B, 1, 1)   # [G, Q, H]
         cls, msk = pred_heads(output)
         preds_class, preds_mask = [cls], [msk]
         for i, scale in enumerate(cfg.src_scales):
             grid_s = panop_grids[scale]
-            src = getattr(self, f"input_proj_{i}")(grid_s.feats.float())
+            src = getattr(self, f"input_proj_{i}")(grid_s.feats.float())   # [B, S, cap, H]
+            out4 = output.reshape(B, S, *output.shape[1:])
+            mask_pred = preds_mask[-1].reshape(B, S, *preds_mask[-1].shape[1:])
             outs = []
             for s in range(S):
-                gs = grid_s.subnet(s)
-                pos_s = sine_position_encoding(gs.coords[:, 1:], npf)
-                pos_s = torch.where(gs.mask[:, None], pos_s,
+                gs = subnet(grid_s, s)
+                pos_s = sine_position_encoding(gs.coords[..., 1:], npf)
+                pos_s = torch.where(gs.mask[..., None], pos_s,
                                     torch.zeros((), device=pos_s.device))
                 allowed = downscale_attn_allowed(
-                    preds_mask[-1][s], grid1.subnet(s), gs, box, scale)
+                    mask_pred[:, s], subnet(grid1, s), gs, box, scale)
                 o = getattr(self, f"cross_{i}")(
-                    output[s], src[s], allowed, pos_s, self.query_embed[s], generator, live)
+                    out4[:, s], src[:, s], allowed, pos_s, self.query_embed[s], generator,
+                    live)
                 outs.append(getattr(self, f"self_{i}")(o, self.query_embed[s], generator,
                                                          live))
-            output = getattr(self, f"ffn_{i}")(torch.stack(outs), generator, live)
+            output = getattr(self, f"ffn_{i}")(rows(torch.stack(outs, 1)), generator, live)
             cls, msk = pred_heads(output)
             preds_class.append(cls)
             preds_mask.append(msk)
+
+        def scans(t):   # [G, ...] -> [B, S, ...]
+            return t.reshape(B, S, *t.shape[1:])
+
         return PredictorOutput(
-            query_logits=preds_class[-1],
-            voxel_logits=preds_mask[-1],
-            aux=list(zip(preds_class[:-1], preds_mask[:-1])),
+            query_logits=scans(preds_class[-1]),
+            voxel_logits=scans(preds_mask[-1]),
+            aux=[(scans(c), scans(m)) for c, m in zip(preds_class[:-1], preds_mask[:-1])],
         )

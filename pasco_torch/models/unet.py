@@ -14,7 +14,8 @@ from pasco_torch.core.sparse import SparseGrid
 
 
 class ModelInput(NamedTuple):
-    """One scene, voxelised on the host.  Shapes are static."""
+    """One scene, voxelised on the host.  Shapes are static.  A batch of
+    scenes carries a leading ``B`` on every array (:func:`stack_inputs`)."""
 
     point_feats: torch.Tensor      # [P, in_ch] f32
     point_coords: torch.Tensor     # [P, 4] int32 (subnet, x, y, z)
@@ -26,11 +27,38 @@ class ModelInput(NamedTuple):
 
 
 class ModelOutput(NamedTuple):
+    """One scene's outputs; a batch's carry a leading ``B`` on every
+    tensor (:func:`scan_output` takes one scan)."""
+
     sem_grids: Dict[int, SparseGrid]          # scale -> voxel grid
     sem_logits: Dict[int, torch.Tensor]       # scale -> [cap, S, n_classes]
     panop_grids: Dict[int, SparseGrid]        # scale -> per-subnet [S, cap, ...]
     sem_logits_pruned: torch.Tensor           # [S, cap1, n_classes]
     predictor: Optional[object]               # transformer.PredictorOutput
+
+
+def stack_inputs(inps) -> ModelInput:
+    """Scenes of one shape stacked into a batch (``bench.py:226-228``)."""
+    return ModelInput(*(torch.stack(parts) for parts in zip(*inps)))
+
+
+def scan_output(out: ModelOutput, b: int) -> ModelOutput:
+    """Scan ``b`` of a batch's ``ModelOutput`` (views, no copy)."""
+
+    def grid(g: SparseGrid) -> SparseGrid:
+        return SparseGrid(g.coords[b], g.feats[b], g.mask[b], g.stride)
+
+    pred = out.predictor
+    if pred is not None:
+        pred = type(pred)(pred.query_logits[b], pred.voxel_logits[b],
+                          [(c[b], m[b]) for c, m in pred.aux])
+    return ModelOutput(
+        sem_grids={k: grid(g) for k, g in out.sem_grids.items()},
+        sem_logits={k: v[b] for k, v in out.sem_logits.items()},
+        panop_grids={k: grid(g) for k, g in out.panop_grids.items()},
+        sem_logits_pruned=out.sem_logits_pruned[b],
+        predictor=pred,
+    )
 
 
 def scene_to_model_input(scene: CollatedScene, device) -> ModelInput:

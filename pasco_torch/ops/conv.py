@@ -5,7 +5,9 @@ and refiner (replaces ``pasco_tpu/ops/pallas_conv.py:fused_packed_conv``).
     out = mask * [relu](conv3_same(x', w) + bias [+ skip])
 
 A CPU tensor takes :func:`masked_conv3_plain`; a CUDA tensor launches the
-CUDA kernel ``csrc/masked_conv3.cu`` or raises.  The kernel note (what
+CUDA kernel ``csrc/masked_conv3.cu`` or raises.  A batch of scans,
+``x [B, X, Z, Y, C]`` with ``mask [B, X, Z, Y]``, runs in the same single
+launch: the tile list spans every scan (:func:`conv_tiles`).  The kernel note (what
 bounds it on the card and how the design answers) is at the top of the
 CUDA source.
 
@@ -39,7 +41,7 @@ class Tiles(NamedTuple):
 
     ids: torch.Tensor        # int32 [n_tiles]
     n_active: torch.Tensor   # int32 [1]
-    n_tiles: int
+    n_tiles: int             # over every scan of a batch
     tx: int = 1
     tz: int = 1
 
@@ -52,19 +54,22 @@ def _active_list(active: torch.Tensor, **geom) -> Tiles:
 
 def conv_tiles(mask: torch.Tensor) -> Tiles:
     """Tiles of ``TX x TZ x TY`` cells of an ``[X, Z, Y]`` mask with any
-    valid cell.  Built once per stage and shared by its convs."""
-    X, Z, Y = mask.shape
+    valid cell.  Built once per stage and shared by its convs.  For a batch
+    ``[B, X, Z, Y]`` tile ``t`` of scan ``b`` has id ``b * n + t`` (``n``
+    tiles a scan), and the list holds the active tiles of every scan."""
+    *lead, X, Z, Y = mask.shape
     nbx, nbz, nby = -(-X // TX), -(-Z // TZ), -(-Y // TY)
-    m = torch.zeros((nbx * TX, nbz * TZ, nby * TY), dtype=torch.bool,
+    m = torch.zeros((*lead, nbx * TX, nbz * TZ, nby * TY), dtype=torch.bool,
                     device=mask.device)
-    m[:X, :Z, :Y] = mask
-    active = m.reshape(nbx, TX, nbz, TZ, nby, TY).any(5).any(3).any(1).reshape(-1)
-    return _active_list(active, tx=TX, tz=TZ)
+    m[..., :X, :Z, :Y] = mask
+    active = m.reshape(*lead, nbx, TX, nbz, TZ, nby, TY).any(-1).any(-2).any(-3)
+    return _active_list(active.reshape(-1), tx=TX, tz=TZ)
 
 
 def masked_conv3_plain(x, mask, weight, bias=None, affine: Affine = None,
                        relu_in=False, skip=None, relu_out=False):
-    """The same function in plain PyTorch (F.conv3d on a permuted view)."""
+    """The same function in plain PyTorch (F.conv3d on a permuted view; a
+    batch at N = B)."""
     m = mask[..., None]
     y = x.float()
     if affine is not None:
@@ -83,13 +88,13 @@ def masked_conv3_plain(x, mask, weight, bias=None, affine: Affine = None,
 
 
 def masked_conv3(
-    x: torch.Tensor,                  # [X, Z, Y, Ci]
-    mask: torch.Tensor,               # [X, Z, Y] bool
+    x: torch.Tensor,                  # [X, Z, Y, Ci] or [B, X, Z, Y, Ci]
+    mask: torch.Tensor,               # [..., X, Z, Y] bool
     weight: torch.Tensor,             # [27, Ci, Co]
     bias: Optional[torch.Tensor] = None,   # [Co]
     affine: Affine = None,            # (a, c) [Ci] f32 prologue
     relu_in: bool = False,
-    skip: Optional[torch.Tensor] = None,   # [X, Z, Y, Co]
+    skip: Optional[torch.Tensor] = None,   # [..., X, Z, Y, Co]
     relu_out: bool = False,
     tiles: Optional[Tiles] = None,    # from conv_tiles(mask)
 ) -> torch.Tensor:
@@ -105,10 +110,13 @@ def _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles, flip=
     """One launch of ``csrc/masked_conv3.cu`` (the caller counts it).
     ``flip`` runs the data-gradient mode on the original ``[27, C, C]``
     weight: taps reversed, Ci and Co swapped, read in place."""
-    X, Z, Y, ch = x.shape
+    if x.dim() not in (4, 5):
+        raise ValueError(f"masked_conv3 takes [X, Z, Y, C] or [B, X, Z, Y, C], got {tuple(x.shape)}")
+    X, Z, Y, ch = x.shape[-4:]
+    B = x.shape[0] if x.dim() == 5 else 1
     dev = x.device
     kernels.require(x, "x", torch.bfloat16)
-    kernels.require(mask, "mask", torch.bool, (X, Z, Y), dev)
+    kernels.require(mask, "mask", torch.bool, x.shape[:-1], dev)
     if tuple(weight.shape) != (27, ch, ch) or ch not in WIDTHS:
         raise ValueError(f"masked_conv3 takes Ci = Co in {WIDTHS} and a (27, Ci, Co) "
                          f"weight, got x {tuple(x.shape)}, weight {tuple(weight.shape)}")
@@ -119,19 +127,21 @@ def _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles, flip=
         a = affine[0].to(device=dev, dtype=torch.float32).contiguous()
         c = affine[1].to(device=dev, dtype=torch.float32).contiguous()
     if skip is not None:
-        kernels.require(skip, "skip", torch.bfloat16, (X, Z, Y, ch), dev)
+        kernels.require(skip, "skip", torch.bfloat16, x.shape, dev)
     if tiles is None:
         tiles = conv_tiles(mask)
-    if (tiles.tx, tiles.tz) != (TX, TZ):
-        raise ValueError(f"tiles of {(tiles.tx, tiles.tz)} are not conv_tiles(mask)")
+    per_scan = -(-X // TX) * -(-Z // TZ) * -(-Y // TY)
+    if (tiles.tx, tiles.tz, tiles.n_tiles) != (TX, TZ, B * per_scan):
+        raise ValueError(f"{tiles.n_tiles} tiles of {(tiles.tx, tiles.tz)} are not "
+                         f"conv_tiles(mask) of {B} x {per_scan}")
     if (x.data_ptr() | w.data_ptr() | (0 if skip is None else skip.data_ptr())) % 16:
         raise ValueError("masked_conv3 needs 16-byte aligned x, weight and skip")
     # every cell is written: by its active tile, or as zero by an inactive one
-    out = torch.empty((X, Z, Y, ch), dtype=torch.bfloat16, device=dev)
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
     err = kernels.lib().pasco_masked_conv3(
         x.data_ptr(), mask.data_ptr(), w.data_ptr(), kernels.ptr(b),
         kernels.ptr(a), kernels.ptr(c), kernels.ptr(skip), out.data_ptr(),
-        tiles.ids.data_ptr(), tiles.n_active.data_ptr(), X, Z, Y, ch, int(flip),
+        tiles.ids.data_ptr(), tiles.n_active.data_ptr(), B, X, Z, Y, ch, int(flip),
         int(relu_in), int(relu_out), tiles.n_tiles, kernels.stream_ptr(x),
     )
     kernels.check(err, "masked_conv3")
@@ -170,7 +180,7 @@ def conv3_weight_grad(xm: torch.Tensor, dym: torch.Tensor) -> torch.Tensor:
     contiguous row ranges of the padded buffers (no shifted copies).  Halo
     rows of the padded cotangent are zero, so rows that wrap across a line
     contribute nothing."""
-    X, Z, Y, ci = xm.shape
+    X, Z, Y, ci = xm.shape[-4:]
     co = dym.shape[-1]
     pad = (0, 0, 1, 1, 1, 1, 1, 1)
     xp = F.pad(xm, pad).reshape(-1, ci)

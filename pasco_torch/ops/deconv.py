@@ -10,7 +10,9 @@ Per child cell ``c`` of parent ``p``:
 
 A CPU tensor takes :func:`up_preamble_plain`; a CUDA tensor launches
 ``csrc/up_preamble.cu`` or raises.  The kernel note is at the top of the
-CUDA source.
+CUDA source.  A batch of scans (volumes and masks with a leading ``B``, the
+box corner ``[B, 3]``) is one launch; each scan's coordinates come from its
+own corner.
 """
 
 from __future__ import annotations
@@ -33,10 +35,14 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 
 def up_tiles(union_mask: torch.Tensor) -> Tiles:
     """Tiles of 64 flat parents with any child in the union mask (active
-    first, their count on the device)."""
-    flat = maxpool2_mask(union_mask).reshape(-1)
-    pad = (-flat.numel()) % ROWS
-    return _active_list(F.pad(flat.to(torch.uint8), (0, pad)).reshape(-1, ROWS).any(1))
+    first, their count on the device).  For a batch ``[B, X, Z, Y]`` the
+    tiles are per scan: tile ``t`` of scan ``b`` has id ``b * n + t`` (``n``
+    tiles a scan)."""
+    *lead, X, Z, Y = union_mask.shape
+    flat = maxpool2_mask(union_mask).reshape(*lead, -1)
+    pad = (-flat.shape[-1]) % ROWS
+    tiles = F.pad(flat.to(torch.uint8), (0, pad)).reshape(*lead, -1, ROWS).any(-1)
+    return _active_list(tiles.reshape(-1))
 
 
 def up_preamble_plain(parent, parent_keep, child_mask, union_mask, skip, box,
@@ -49,6 +55,8 @@ def up_preamble_plain(parent, parent_keep, child_mask, union_mask, skip, box,
     d = deconv2_dense(pm, wd, bd).float()
     d = F.leaky_relu(bn_up[0] * d + bn_up[1], 0.01).to(dt)
     coords = (cell_coords(box, scale).float() / scale).to(dt)
+    if coords.dim() < d.dim():   # one box corner for the whole batch
+        coords = coords.expand(*d.shape[:-1], 3)
     xc = torch.cat([d, coords], dim=-1).float()
     xc = (bn_resize[0] * xc + bn_resize[1]).to(dt).float()
     r = (xc @ wr.to(dt).float() + br.float()).to(dt).float()
@@ -59,12 +67,12 @@ def up_preamble_plain(parent, parent_keep, child_mask, union_mask, skip, box,
 
 
 def up_preamble(
-    parent: torch.Tensor,        # [X2, Z2, Y2, Ci]
-    parent_keep: torch.Tensor,   # [X2, Z2, Y2] bool
-    child_mask: torch.Tensor,    # [X, Z, Y] bool generated children
-    union_mask: torch.Tensor,    # [X, Z, Y] bool  child | skip_mask
-    skip: torch.Tensor,          # [X, Z, Y, Co] encoder features
-    box: Box,
+    parent: torch.Tensor,        # [X2, Z2, Y2, Ci] or [B, X2, Z2, Y2, Ci]
+    parent_keep: torch.Tensor,   # [..., X2, Z2, Y2] bool
+    child_mask: torch.Tensor,    # [..., X, Z, Y] bool generated children
+    union_mask: torch.Tensor,    # [..., X, Z, Y] bool  child | skip_mask
+    skip: torch.Tensor,          # [..., X, Z, Y, Co] encoder features
+    box: Box,                    # minimum [3], or [B, 3] for a batch
     scale: int,
     wd: torch.Tensor,            # [8, Ci, Co]
     bd: torch.Tensor,            # [Co]
@@ -78,15 +86,19 @@ def up_preamble(
         return up_preamble_plain(parent, parent_keep, child_mask, union_mask,
                                  skip, box, scale, wd, bd, bn_up, bn_resize,
                                  wr, br)
-    X2, Z2, Y2, ci = parent.shape
+    if parent.dim() not in (4, 5):
+        raise ValueError(f"up_preamble takes [X2, Z2, Y2, C] or [B, X2, Z2, Y2, C], got "
+                         f"{tuple(parent.shape)}")
+    *lead, X2, Z2, Y2, ci = parent.shape
+    B = lead[0] if lead else 1
     co = wd.shape[-1]
     dev = parent.device
     X, Z, Y = 2 * X2, 2 * Z2, 2 * Y2
     kernels.require(parent, "parent", torch.bfloat16)
-    kernels.require(parent_keep, "parent_keep", torch.bool, (X2, Z2, Y2), dev)
-    kernels.require(child_mask, "child_mask", torch.bool, (X, Z, Y), dev)
-    kernels.require(union_mask, "union_mask", torch.bool, (X, Z, Y), dev)
-    kernels.require(skip, "skip", torch.bfloat16, (X, Z, Y, co), dev)
+    kernels.require(parent_keep, "parent_keep", torch.bool, (*lead, X2, Z2, Y2), dev)
+    kernels.require(child_mask, "child_mask", torch.bool, (*lead, X, Z, Y), dev)
+    kernels.require(union_mask, "union_mask", torch.bool, (*lead, X, Z, Y), dev)
+    kernels.require(skip, "skip", torch.bfloat16, (*lead, X, Z, Y, co), dev)
     if tuple(wd.shape) != (8, ci, co) or tuple(wr.shape) != (co + 3, co):
         raise ValueError(f"up_preamble: wd {tuple(wd.shape)}, wr {tuple(wr.shape)}")
     if (ci, co) not in WIDTHS:
@@ -97,19 +109,21 @@ def up_preamble(
         v.to(**f32).contiguous()
         for v in (bd, *bn_up, *bn_resize, br)
     )
-    box_min = box.minimum.to(device=dev, dtype=torch.int32).contiguous()
+    # one corner per scan: [B, 3] (a [3] corner is shared by every scan)
+    box_min = box.minimum.to(device=dev, dtype=torch.int32).expand(B, 3).contiguous()
     if tiles is None:
         tiles = up_tiles(union_mask)
-    if tiles.n_tiles != -(-(X2 * Z2 * Y2) // ROWS):
-        raise ValueError(f"up_preamble: {tiles.n_tiles} tiles for {X2 * Z2 * Y2} parents")
-    out = torch.empty((X, Z, Y, co), dtype=torch.bfloat16, device=dev)
+    if tiles.n_tiles != B * -(-(X2 * Z2 * Y2) // ROWS):
+        raise ValueError(f"up_preamble: {tiles.n_tiles} tiles for {B} x {X2 * Z2 * Y2} "
+                         f"parents")
+    out = torch.empty((*lead, X, Z, Y, co), dtype=torch.bfloat16, device=dev)
     err = kernels.lib().pasco_up_preamble(
         parent.data_ptr(), parent_keep.data_ptr(), child_mask.data_ptr(),
         union_mask.data_ptr(), skip.data_ptr(), wd16.data_ptr(),
         bd32.data_ptr(), a1.data_ptr(), c1.data_ptr(), a2.data_ptr(),
         c2.data_ptr(), wr16.data_ptr(), br32.data_ptr(), box_min.data_ptr(),
         out.data_ptr(), tiles.ids.data_ptr(), tiles.n_active.data_ptr(),
-        X2, Z2, Y2, ci, co, scale, tiles.n_tiles, kernels.stream_ptr(parent),
+        B, X2, Z2, Y2, ci, co, scale, tiles.n_tiles, kernels.stream_ptr(parent),
     )
     kernels.check(err, "up_preamble")
     kernels.LAUNCHES["up_preamble"] += 1

@@ -1,8 +1,10 @@
 """Plain PyTorch twins of ``pasco_tpu/ops/dense_ops.py`` on the port's layout.
 
-Every volume is channels-last and batchless in ``[X, Z, Y, C]`` order
+Every volume is channels-last in ``[X, Z, Y, C]`` order
 (``pasco_tpu/models/dense_unet.py:64-70``); occupancy masks are
-``[X, Z, Y]`` bool.  Weights keep the reference's sparse layout
+``[X, Z, Y]`` bool.  A batch of scans (the batched forward) puts one
+leading axis in front, ``[B, X, Z, Y, C]`` and ``[B, X, Z, Y]``, with a
+``[B, 3]`` box corner; every function here takes either form.  Weights keep the reference's sparse layout
 ``[K, Cin, Cout]`` with taps enumerated by ``kernel_offsets``: x-major,
 z fastest over the logical (x, y, z) offsets.  The z-pair packing of the
 TPU path is not ported: it exists only to fill the TPU's 128-lane tiles.
@@ -14,6 +16,7 @@ input dtype.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -25,12 +28,14 @@ from pasco_torch.ops.extract import stream_extract
 
 def conv3_dense(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """'Same' 3x3x3 conv of an ``[X, Z, Y, Ci]`` volume, weight ``[27, Ci, Co]``."""
+    """'Same' 3x3x3 conv of an ``[X, Z, Y, Ci]`` volume (or ``[B, X, Z, Y,
+    Ci]``: one conv at N = B), weight ``[27, Ci, Co]``."""
     ci, co = weight.shape[1], weight.shape[2]
     # taps (dx, dy, dz) -> conv3d's [Co, Ci, kX, kZ, kY] over (X, Z, Y)
     w = weight.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 2, 1)
-    out = F.conv3d(x.permute(3, 0, 1, 2)[None], w.to(x.dtype), padding=1)
-    out = out[0].permute(1, 2, 3, 0)
+    xb = x if x.dim() == 5 else x[None]
+    out = F.conv3d(xb.permute(0, 4, 1, 2, 3), w.to(x.dtype), padding=1)
+    out = out.permute(0, 2, 3, 4, 1).reshape(*x.shape[:-1], co)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
@@ -40,16 +45,17 @@ def down2_dense(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel-2 stride-2 conv as one product: each output cell's 2x2x2
     children (taps ``kernel_offsets(2)``: (ix, iy, iz), z fastest)."""
-    X, Z, Y, c = x.shape
+    *lead, X, Z, Y, c = x.shape
+    n = len(lead)
     xr = (
-        x.reshape(X // 2, 2, Z // 2, 2, Y // 2, 2, c)
-        .permute(0, 2, 4, 1, 5, 3, 6)          # [X2, Z2, Y2, ix, iy, iz, c]
-        .reshape(-1, 8 * c)
+        x.reshape(*lead, X // 2, 2, Z // 2, 2, Y // 2, 2, c)
+        .permute(*range(n), n, n + 2, n + 4, n + 1, n + 5, n + 3, n + 6)
+        .reshape(-1, 8 * c)                   # [..., X2, Z2, Y2, ix, iy, iz, c]
     )
     out = xr.float() @ weight.reshape(8 * c, -1).to(x.dtype).float()
     if bias is not None:
         out = out + bias.float()
-    return out.reshape(X // 2, Z // 2, Y // 2, -1).to(x.dtype)
+    return out.reshape(*lead, X // 2, Z // 2, Y // 2, -1).to(x.dtype)
 
 
 def deconv2_dense(x: torch.Tensor, weight: torch.Tensor,
@@ -57,91 +63,101 @@ def deconv2_dense(x: torch.Tensor, weight: torch.Tensor,
     """Generative stride-2 transposed conv: parent p emits child
     ``2p + offset_k`` with ``x[p] @ weight[k]`` (one product + a
     depth-to-space shuffle)."""
-    X, Z, Y, c = x.shape
+    *lead, X, Z, Y, c = x.shape
+    n = len(lead)
     d = weight.shape[-1]
     w = weight.to(x.dtype).float().permute(1, 0, 2).reshape(c, 8 * d)
     out = x.reshape(-1, c).float() @ w
     if bias is not None:
         out = out + bias.float().repeat(8)
-    out = out.to(x.dtype).reshape(X, Z, Y, 2, 2, 2, d)   # (ix, iy, iz)
-    return out.permute(0, 3, 1, 5, 2, 4, 6).reshape(2 * X, 2 * Z, 2 * Y, d)
+    out = out.to(x.dtype).reshape(*lead, X, Z, Y, 2, 2, 2, d)   # (ix, iy, iz)
+    out = out.permute(*range(n), n, n + 3, n + 1, n + 5, n + 2, n + 4, n + 6)
+    return out.reshape(*lead, 2 * X, 2 * Z, 2 * Y, d)
 
 
 def maxpool2_mask(mask: torch.Tensor) -> torch.Tensor:
-    """[X, Z, Y] bool -> [X/2, Z/2, Y/2] any-child."""
-    X, Z, Y = mask.shape
-    return mask.reshape(X // 2, 2, Z // 2, 2, Y // 2, 2).any(5).any(3).any(1)
+    """[..., X, Z, Y] bool -> [..., X/2, Z/2, Y/2] any-child."""
+    *lead, X, Z, Y = mask.shape
+    return mask.reshape(*lead, X // 2, 2, Z // 2, 2, Y // 2, 2).any(-1).any(-2).any(-3)
 
 
 def upsample2_mask(mask: torch.Tensor) -> torch.Tensor:
-    """[X, Z, Y] bool -> [2X, 2Z, 2Y] broadcast to the children."""
-    X, Z, Y = mask.shape
-    out = mask[:, None, :, None, :, None].expand(X, 2, Z, 2, Y, 2)
-    return out.reshape(2 * X, 2 * Z, 2 * Y)
+    """[..., X, Z, Y] bool -> [..., 2X, 2Z, 2Y] broadcast to the children."""
+    *lead, X, Z, Y = mask.shape
+    out = mask[..., :, None, :, None, :, None].expand(*lead, X, 2, Z, 2, Y, 2)
+    return out.reshape(*lead, 2 * X, 2 * Z, 2 * Y)
 
 
 def _axis_coords(box: Box, stride: int):
+    """Absolute x, y, z cell coordinates of the box: ``[ex]``, ``[ey]``,
+    ``[ez]`` (``[B, e]`` each for a ``[B, 3]`` corner)."""
     ex, ey, ez = box.extent_at(stride)
-    dev = box.minimum.device
-    return (
-        box.minimum[0] + torch.arange(ex, device=dev, dtype=torch.int32) * stride,
-        box.minimum[1] + torch.arange(ey, device=dev, dtype=torch.int32) * stride,
-        box.minimum[2] + torch.arange(ez, device=dev, dtype=torch.int32) * stride,
-    )
+    mn = box.minimum
+    dev = mn.device
+    return tuple(
+        mn[..., j, None] + torch.arange(e, device=dev, dtype=torch.int32) * stride
+        for j, e in enumerate((ex, ey, ez)))
 
 
 def bbox_mask(box: Box, stride: int, bbox_min: torch.Tensor,
               bbox_max: torch.Tensor) -> torch.Tensor:
-    """[X, Z, Y] bool of cells whose absolute coords lie in [min, max]."""
+    """[X, Z, Y] bool of cells whose absolute coords lie in [min, max]
+    (``[B, X, Z, Y]`` for a ``[B, 3]`` box corner and ``[B, 3]`` bounds)."""
     ax, ay, az = _axis_coords(box, stride)
-    mx = (ax >= bbox_min[0]) & (ax <= bbox_max[0])
-    my = (ay >= bbox_min[1]) & (ay <= bbox_max[1])
-    mz = (az >= bbox_min[2]) & (az <= bbox_max[2])
-    return mx[:, None, None] & mz[None, :, None] & my[None, None, :]
+    mx = (ax >= bbox_min[..., 0, None]) & (ax <= bbox_max[..., 0, None])
+    my = (ay >= bbox_min[..., 1, None]) & (ay <= bbox_max[..., 1, None])
+    mz = (az >= bbox_min[..., 2, None]) & (az <= bbox_max[..., 2, None])
+    return mx[..., :, None, None] & mz[..., None, :, None] & my[..., None, None, :]
 
 
 def cell_coords(box: Box, stride: int) -> torch.Tensor:
-    """[X, Z, Y, 3] int32 absolute stride-1 (x, y, z) cell coordinates."""
+    """[X, Z, Y, 3] int32 absolute stride-1 (x, y, z) cell coordinates
+    (``[B, X, Z, Y, 3]`` for a ``[B, 3]`` box corner)."""
     ax, ay, az = _axis_coords(box, stride)
-    gx, gz, gy = torch.meshgrid(ax, az, ay, indexing="ij")
+    shape = (*ax.shape[:-1], ax.shape[-1], az.shape[-1], ay.shape[-1])
+    gx = ax[..., :, None, None].expand(shape)
+    gz = az[..., None, :, None].expand(shape)
+    gy = ay[..., None, None, :].expand(shape)
     return torch.stack([gx, gy, gz], dim=-1)
 
 
 def coords_from_src(src: torch.Tensor, valid: torch.Tensor, shape, box: Box,
                     stride: int) -> torch.Tensor:
     """[cap, 4] int32 ``(0, x, y, z)`` from flat ``[X, Z, Y]`` indices;
-    zero at invalid rows."""
-    _, Z, Y = shape
+    zero at invalid rows (``[B, cap, 4]`` from ``[B, cap]`` rows and a
+    ``[B, 3]`` box corner)."""
+    Z, Y = shape[-2], shape[-1]
     src = src.long()
     sy = src % Y
     sz = (src // Y) % Z
     sx = src // (Y * Z)
-    rel = torch.stack([sx, sy, sz], dim=-1) * stride + box.minimum[None, :]
-    rel = torch.where(valid[:, None], rel, torch.zeros_like(rel))
-    return torch.cat([torch.zeros_like(rel[:, :1]), rel], dim=-1).to(torch.int32)
+    rel = torch.stack([sx, sy, sz], dim=-1) * stride + box.minimum[..., None, :]
+    rel = torch.where(valid[..., None], rel, torch.zeros_like(rel))
+    return torch.cat([torch.zeros_like(rel[..., :1]), rel], dim=-1).to(torch.int32)
 
 
 def extract_sparse(
-    keep: torch.Tensor,                       # [X, Z, Y] bool
+    keep: torch.Tensor,                       # [X, Z, Y] or [B, X, Z, Y] bool
     box: Box,
     stride: int,
     capacity: int,
-    payload: Optional[torch.Tensor] = None,   # [X, Z, Y, E] carried along
+    payload: Optional[torch.Tensor] = None,   # [..., X, Z, Y, E] carried along
 ):
     """Compact kept cells in flat-index order (the reference's
     ``compact_src`` order: the first ``capacity`` kept cells, ascending).
-    Returns ``(coords [cap, 4] int32, valid [cap] bool, vals [cap, E])``;
+    Returns ``(coords [cap, 4] int32, valid [cap] bool, vals [cap, E])``,
+    each with the batch in front for a batch (``capacity`` per scan);
     the payload moves through :func:`pasco_torch.ops.extract.stream_extract`."""
     vals, src, valid, _ = stream_extract(keep, capacity, payload)
     return coords_from_src(src, valid, keep.shape, box, stride), valid, vals
 
 
 def extract_sparse_train(
-    keep: torch.Tensor,          # [X, Z, Y] bool
+    keep: torch.Tensor,          # [X, Z, Y] or [B, X, Z, Y] bool
     box: Box,
     stride: int,
     capacity: int,
-    payload: torch.Tensor,       # [X, Z, Y, E]
+    payload: torch.Tensor,       # [..., X, Z, Y, E]
 ):
     """The training form of :func:`extract_sparse`: the compaction kernel
     gives the rows (``src``, ``valid``) with an empty payload, and the
@@ -151,8 +167,12 @@ def extract_sparse_train(
     (``dense_unet.py:1351-1378, 1469-1479``)."""
     _, src, valid, _ = stream_extract(keep, capacity)
     e = payload.shape[-1]
-    rows = payload.reshape(-1, e).index_select(0, src.long())
-    vals = torch.where(valid[:, None], rows,
+    # rows of the flattened batch: scan b's cells follow those of scans < b
+    first = torch.arange(math.prod(src.shape[:-1]), device=src.device) * math.prod(keep.shape[-3:])
+    flat = src.long() + first.reshape(*src.shape[:-1], 1)
+    rows = payload.reshape(-1, e).index_select(0, flat.reshape(-1))
+    rows = rows.reshape(*src.shape, e)
+    vals = torch.where(valid[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
     return coords_from_src(src, valid, keep.shape, box, stride), valid, vals
 

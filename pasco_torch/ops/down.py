@@ -5,7 +5,8 @@
 
 with ``mask_out = maxpool2_mask(mask_in)``.  A CPU tensor takes
 :func:`down2_fused_plain`; a CUDA tensor launches ``csrc/down2_fused.cu``
-or raises.  The kernel note is at the top of the CUDA source.
+or raises.  The kernel note is at the top of the CUDA source.  A batch of
+scans (``[B, X, Z, Y, Ci]``, masks ``[B, ...]``) is one launch.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ WIDTHS = ((64, 128), (128, 256), (256, 256))   # (Ci, Co) the kernel takes
 def down_tiles(mask_out: torch.Tensor) -> Tiles:
     """The valid output cells, compacted on the device: their flat
     ``[X/2, Z/2, Y/2]`` indices first, ascending, and their count (no host
-    sync).  The kernel runs its products on these cells only."""
+    sync).  The kernel runs its products on these cells only.  For a batch
+    ``[B, X/2, Z/2, Y/2]`` the indices are flat over all of it: cell ``o``
+    of scan ``b`` is ``b * n + o``."""
     flat = mask_out.reshape(-1)
     n = flat.numel()
     pos = torch.cumsum(flat, 0, dtype=torch.int32) - 1
@@ -50,9 +53,9 @@ def down2_fused_plain(x, mask_in, mask_out, weight, bias, bn1: Pair, bn2: Pair):
 
 
 def down2_fused(
-    x: torch.Tensor,            # [X, Z, Y, Ci]
-    mask_in: torch.Tensor,      # [X, Z, Y] bool
-    mask_out: torch.Tensor,     # [X/2, Z/2, Y/2] bool == maxpool2_mask(mask_in)
+    x: torch.Tensor,            # [X, Z, Y, Ci] or [B, X, Z, Y, Ci]
+    mask_in: torch.Tensor,      # [..., X, Z, Y] bool
+    mask_out: torch.Tensor,     # [..., X/2, Z/2, Y/2] bool == maxpool2_mask(mask_in)
     weight: torch.Tensor,       # [8, Ci, Co]
     bias: torch.Tensor,         # [Co]
     bn1: Pair,                  # (a, c) [Co] f32
@@ -61,26 +64,32 @@ def down2_fused(
 ) -> torch.Tensor:
     if not x.is_cuda:
         return down2_fused_plain(x, mask_in, mask_out, weight, bias, bn1, bn2)
-    X, Z, Y, ci = x.shape
+    if x.dim() not in (4, 5):
+        raise ValueError(f"down2_fused takes [X, Z, Y, C] or [B, X, Z, Y, C], got {tuple(x.shape)}")
+    *lead, X, Z, Y, ci = x.shape
+    B = lead[0] if lead else 1
     co = weight.shape[-1]
     dev = x.device
     kernels.require(x, "x", torch.bfloat16)
-    kernels.require(mask_in, "mask_in", torch.bool, (X, Z, Y), dev)
-    kernels.require(mask_out, "mask_out", torch.bool, (X // 2, Z // 2, Y // 2), dev)
+    kernels.require(mask_in, "mask_in", torch.bool, (*lead, X, Z, Y), dev)
+    kernels.require(mask_out, "mask_out", torch.bool, (*lead, X // 2, Z // 2, Y // 2), dev)
     if tuple(weight.shape) != (8, ci, co) or X % 2 or Z % 2 or Y % 2:
         raise ValueError(f"down2_fused: weight {tuple(weight.shape)}, x {tuple(x.shape)}")
     if (ci, co) not in WIDTHS:
         raise ValueError(f"down2_fused takes (Ci, Co) in {WIDTHS}, got {(ci, co)}")
     f32 = dict(device=dev, dtype=torch.float32)
-    w = weight.to(device=dev, dtype=torch.bfloat16).contiguous()
+    w = kernels.cast_once(weight, dev, torch.bfloat16)
+    # no copy for vectors already f32 on the card (the BN affines are)
     vecs = [v.to(**f32).contiguous() for v in (bias, *bn1, *bn2)]
     if tiles is None:
         tiles = down_tiles(mask_out)
-    out = torch.empty((X // 2, Z // 2, Y // 2, co), dtype=torch.bfloat16, device=dev)
+    if tiles.n_tiles != mask_out.numel():
+        raise ValueError(f"down2_fused: {tiles.n_tiles} cells listed for {mask_out.numel()}")
+    out = torch.empty((*lead, X // 2, Z // 2, Y // 2, co), dtype=torch.bfloat16, device=dev)
     err = kernels.lib().pasco_down2_fused(
         x.data_ptr(), mask_in.data_ptr(), mask_out.data_ptr(), w.data_ptr(),
         *(v.data_ptr() for v in vecs), out.data_ptr(), tiles.ids.data_ptr(),
-        tiles.n_active.data_ptr(), X, Z, Y, ci, co, kernels.stream_ptr(x),
+        tiles.n_active.data_ptr(), B, X, Z, Y, ci, co, kernels.stream_ptr(x),
     )
     kernels.check(err, "down2_fused")
     kernels.LAUNCHES["down2_fused"] += 1

@@ -5,6 +5,10 @@ its kernels).
 Returns ``(vals [cap, E], src [cap] int32, valid [cap] bool, total [] int32)``
 in the flat-index order of the reference's ``compact_src``: the first
 ``cap`` kept cells, ascending.  Rows past ``min(total, cap)`` are zero.
+A batch ``keep [B, X, Z, Y]`` (``payload [B, X, Z, Y, E]``) extracts each
+scan on its own, ``cap`` rows each, and stacks the results: the kernel
+launches once per scan (its single-pass look-back and its capacity are
+per call, as ``jax.vmap`` of the reference gives each scan the whole cap).
 A CPU tensor takes :func:`stream_extract_plain`; a CUDA tensor launches
 ``csrc/stream_extract.cu`` or raises.  The kernel note is at the top of
 the CUDA source.
@@ -32,8 +36,17 @@ def compact_src(keep_f: torch.Tensor, capacity: int):
     return src, valid, total
 
 
+def _per_scan(fn, keep, capacity, payload):
+    """``fn`` on each scan of a batch, the results stacked."""
+    outs = [fn(keep[b], capacity, None if payload is None else payload[b])
+            for b in range(keep.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
 def stream_extract_plain(keep, capacity, payload=None):
     """The same function in plain PyTorch (``nonzero()[:cap]`` + gather)."""
+    if keep.dim() == 4:
+        return _per_scan(stream_extract_plain, keep, capacity, payload)
     src, valid, total = compact_src(keep.reshape(-1), capacity)
     e = 0 if payload is None else payload.shape[-1]
     dtype = torch.bfloat16 if payload is None else payload.dtype
@@ -74,12 +87,19 @@ _WORKSPACES: Dict[Tuple[int, int], _Workspace] = {}
 
 
 def stream_extract(
-    keep: torch.Tensor,                       # [X, Z, Y] bool
+    keep: torch.Tensor,                       # [X, Z, Y] or [B, X, Z, Y] bool
     capacity: int,
-    payload: Optional[torch.Tensor] = None,   # [X, Z, Y, E] bf16
+    payload: Optional[torch.Tensor] = None,   # [..., X, Z, Y, E] bf16
 ):
     if not keep.is_cuda:
         return stream_extract_plain(keep, capacity, payload)
+    if keep.dim() == 4:
+        return _per_scan(_launch, keep, capacity, payload)
+    return _launch(keep, capacity, payload)
+
+
+def _launch(keep, capacity, payload):
+    """One launch of ``csrc/stream_extract.cu`` on one scan (counted)."""
     dev = keep.device
     kernels.require(keep, "keep", torch.bool)
     n = keep.numel()

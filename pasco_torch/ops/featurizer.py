@@ -27,6 +27,7 @@ launches ``csrc/featurizer.cu`` or raises.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -51,16 +52,23 @@ def scatter_points(f: torch.Tensor, rel: torch.Tensor, in_box: torch.Tensor,
     S * F]`` in ``dtype`` (subnet ``s`` in lane block ``s``, the ``enc_in``
     input order of ``pasco_tpu/models/dense_unet.py:1202-1216``) with every
     empty (cell, subnet) row zero, and the per-row occupancy
-    ``[X, Z, Y, S]``."""
+    ``[X, Z, Y, S]``.  Points with a leading batch axis (``f [B, P, F]``,
+    ``rel [B, P, 3]``, ...) fill one volume per scan: ``[B, X, Z, Y, ...]``."""
     ex, ey, ez = extent
     S = n_subnets
-    n_rows = ex * ey * ez * S
-    row = cell_index(rel, extent) * S + subnet
+    lead = f.shape[:-2]
+    n_scan = ex * ey * ez * S              # rows of one scan
+    n_rows = n_scan * math.prod(lead)
+    first = torch.arange(math.prod(lead), dtype=rel.dtype, device=f.device) * n_scan
+    row = cell_index(rel.reshape(-1, 3), extent).reshape(rel.shape[:-1]) * S + subnet
+    row = row + first.reshape(*lead, 1)
     flat_idx = torch.where(in_box, row, torch.full_like(row, n_rows))
-    grid_f = scatter_max_rows(f.to(dtype), flat_idx, n_rows, NEG)[:-1]
+    grid_f = scatter_max_rows(f.reshape(-1, f.shape[-1]).to(dtype), flat_idx.reshape(-1),
+                              n_rows, NEG)[:-1]
     occ = grid_f.amax(-1) > torch.tensor(NEG, dtype=dtype)
     x = torch.where(occ[:, None], grid_f, torch.zeros((), dtype=dtype, device=f.device))
-    return x.reshape(ex, ez, ey, S * f.shape[-1]), occ.reshape(ex, ez, ey, S)
+    return (x.reshape(*lead, ex, ez, ey, S * f.shape[-1]),
+            occ.reshape(*lead, ex, ez, ey, S))
 
 
 def enc_in_1x1(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
@@ -70,7 +78,7 @@ def enc_in_1x1(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
     dt = x.dtype
     y = x.reshape(-1, x.shape[-1]) @ weight.to(dt) + bias.to(dt)
     y = torch.where(mask.reshape(-1, 1), y, torch.zeros((), dtype=dt, device=x.device))
-    return y.reshape(*x.shape[:3], -1)
+    return y.reshape(*x.shape[:-1], -1)
 
 
 def featurizer_fused_plain(f, rel, in_box, weight, bias, extent: Extent,

@@ -6,6 +6,7 @@ protocols of the reference package's ``bench.py``.
     BENCH_INFERS=3 python scripts_torch/bench.py      # the MIMO ensemble
     BENCH_PER_SCAN=1 python scripts_torch/bench.py    # per-scan latency
     BENCH_FIXED_BOX=1 python scripts_torch/bench.py   # every scan at 352x352x32
+    BENCH_BATCH=4 python scripts_torch/bench.py       # 4 scans per forward
     python scripts_torch/bench.py --compile-only      # the card's build gate
 
 The scans are ``bench.py``'s (``bench.py:277-301``): ``BENCH_SCANS``
@@ -30,10 +31,23 @@ host syncs of one forward and the peak device memory; the last line is
 ``bench.py``'s JSON (``inference_scans_per_sec[_n3]``, ``vs_baseline``
 against the original PaSCo's 0.703 / 1.193 s per scan on a V100).
 
+``BENCH_BATCH=B > 1`` is the reference's batched protocol
+(``bench.py:197-237``, :func:`measure_batch`): ``B`` distinct unaugmented
+scans (``_synthetic_model_input`` at seed 0 and seeds 100 ... 100 + B - 2,
+:func:`batch_scans`) stacked into one input, one forward of all ``B`` per
+call at the fixed 352x352x32 box of ``PaSCoConfig()`` at n_infers 1
+(``BENCH_TRAINED_CKPT`` as above), the whole output reduced on the card;
+the median over ``max(BENCH_ITERS, 6)`` synchronised calls, divided by
+``B``.  Earlier lines give device ms per batch (CUDA events), the peak
+device memory and the host syncs of one forward; the last line is the same
+``inference_scans_per_sec`` line.  It refuses ``BENCH_INFERS != 1`` (the
+reference's batched branch builds ``PaSCoConfig()`` at n_infers 1) and
+``BENCH_BATCH_PALLAS=0`` (the reference's switch to a path without its
+kernels; the port keeps the plain versions off the card).
+
 ``--compile-only`` builds the kernels and runs one forward per candidate
 box at n_infers 1 and 3 (``BENCH_COMPILE_INFERS``), checks that each output
-is finite, and prints ``compile_gate_programs``.  Needs a CUDA device;
-``BENCH_BATCH > 1`` (the reference's batched measurement) is not ported.
+is finite, and prints ``compile_gate_programs``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -78,6 +92,65 @@ def draw_scans(cfg, n_scans: int, device, seed: int = 0):
             for col, inp in make_scans(cfg, n_scans, device, seed)]
 
 
+def batch_scenes(cfg, batch: int):
+    """The reference's batched scans (``bench.py:219-228``), collated on the
+    host: ``B`` distinct scans as ``_synthetic_model_input`` draws them
+    (``RandomState(seed)``, ``n_infers`` views without augmentation,
+    ``__graft_entry__.py:38-55``) at seed 0 and seeds 100 ... 100 + B - 2."""
+    from pasco_torch.data.semantic_kitti.collate import collate
+    from pasco_torch.data.semantic_kitti.dataset import process_scene
+    from pasco_torch.data.synthetic import make_scene
+
+    cols = []
+    for seed in [0] + [100 + k for k in range(batch - 1)]:
+        rng = np.random.RandomState(seed)
+        views = [process_scene(make_scene(
+            rng, scene_size=cfg.scene.scene_size,
+            n_points=min(cfg.capacity.num_points, 120000),
+            point_feat_dim=cfg.model.in_channels - 6), None, rng)
+            for _ in range(cfg.model.n_infers)]
+        cols.append(collate(views, cfg))
+    return cols
+
+
+def batch_scans(cfg, batch: int, device):
+    """:func:`batch_scenes` stacked into one input on ``device``
+    (``bench.py:226-228``)."""
+    from pasco_torch.models.unet import scene_to_model_input, stack_inputs
+
+    return stack_inputs([scene_to_model_input(c, device) for c in batch_scenes(cfg, batch)])
+
+
+@torch.no_grad()
+def measure_batch(net, binp, iters: int = 4):
+    """The reference's batched protocol on the stacked input ``binp``: two
+    untimed calls, then ``max(iters, 6)`` calls, each a forward of every
+    scan with its output reduced and read on the host; returns
+    ``scans_per_sec`` (1 / the median host seconds of a call over B),
+    ``samples_s`` and ``device_ms`` (the median ms between CUDA events
+    around a call; ``None`` on the CPU)."""
+    B = binp.point_feats.shape[0]
+    cuda = binp.point_feats.is_cuda
+    reduced(net(binp)).item()
+    reduced(net(binp)).item()
+    samples, dev_ms = [], []
+    for _ in range(max(iters, 6)):
+        if cuda:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        total = reduced(net(binp))
+        if cuda:
+            b.record()
+        total.item()
+        samples.append((time.perf_counter() - t0) / B)
+        if cuda:
+            dev_ms.append(a.elapsed_time(b))
+    dt = sorted(samples)[len(samples) // 2]
+    return dict(scans_per_sec=1.0 / dt, samples_s=samples,
+                device_ms=statistics.median(dev_ms) if cuda else None)
+
+
 def reduced(out) -> torch.Tensor:
     """The sum of every floating tensor of a ``ModelOutput``, in f32 on its
     device (``bench.py:_reduced``)."""
@@ -104,7 +177,10 @@ def reduced(out) -> torch.Tensor:
 def host_syncs(fn):
     """Where ``fn()`` made the host wait for the card: for each synchronising
     call (torch's sync debug mode warns once per call), the innermost
-    ``file:line`` of this repository on the stack."""
+    ``file:line`` of this repository on the stack.  ``fn`` runs without
+    autograd, as the timed forwards do: with it, the forward keeps its
+    activations for a backward, and a peak read across the call counts
+    them."""
     sites = []
 
     def show(message, *args, **kwargs):
@@ -121,7 +197,8 @@ def host_syncs(fn):
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            with torch.no_grad():
+                fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -261,12 +338,53 @@ def compile_only():
                       "unit": "programs", "vs_baseline": 1.0}))
 
 
-def main():
+def run_batch(net, binp, iters: int = 4):
+    """:func:`measure_batch` on the card, with the host syncs of one
+    forward, the device memory in use before it (``live_gb``: the network,
+    the inputs and whatever the caller holds) and the peak device memory
+    (GB) of the protocol."""
+    dev = binp.point_feats.device
+    torch.cuda.synchronize(dev)
+    live = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    syncs = host_syncs(lambda: reduced(net(binp)))
+    res = measure_batch(net, binp, iters)
+    res.update(syncs=syncs, live_gb=live, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return res
+
+
+def batch_line(res, batch: int, box) -> str:
+    return (f"batched, B={batch}, fixed box {tuple(box)}: {res['scans_per_sec']:.4f} scans/s, "
+            f"device {res['device_ms']:.3f} ms per batch ({res['device_ms'] / batch:.3f} "
+            f"ms/scan), peak {res['peak_gb']:.3f} GB ({res['live_gb']:.3f} GB in use before), "
+            f"{len(res['syncs'])} host syncs per "
+            f"forward {res['syncs']}")
+
+
+def main_batch(batch: int, trained: str, n_iters: int):
+    """``BENCH_BATCH = batch > 1``: the reference's batched protocol."""
+    if int(os.environ.get("BENCH_INFERS", "1")) != 1:
+        raise SystemExit("BENCH_BATCH > 1 runs PaSCoConfig() at n_infers 1, as the "
+                         "reference's batched branch does; unset BENCH_INFERS")
+    if os.environ.get("BENCH_BATCH_PALLAS", "1") == "0":
+        raise SystemExit("BENCH_BATCH_PALLAS=0 selects the reference's path without its "
+                         "kernels; the port runs its kernels on the card and has no such path")
     dev = _require_card()
-    if int(os.environ.get("BENCH_BATCH", "1")) > 1:
-        raise SystemExit("BENCH_BATCH > 1 is not ported (ROADMAP.md, queue 1)")
+    print(card_line(), flush=True)
+    cfg = bench_config(1)
+    net = build_forward(cfg, dev, trained).net
+    res = run_batch(net, batch_scans(cfg, batch, dev), n_iters)
+    print(batch_line(res, batch, cfg.scene.box_extent), flush=True)
+    print(result_line(res["scans_per_sec"], 1))
+
+
+def main():
+    batch = int(os.environ.get("BENCH_BATCH", "1"))
     n_infers = int(os.environ.get("BENCH_INFERS", "1"))
     trained = os.environ.get("BENCH_TRAINED_CKPT", "")
+    if batch > 1:
+        return main_batch(batch, trained, int(os.environ.get("BENCH_ITERS", "4")))
+    dev = _require_card()
     if trained and n_infers != 1:
         raise SystemExit("BENCH_TRAINED_CKPT is trained at n_infers=1; "
                          "unset it for BENCH_INFERS != 1")

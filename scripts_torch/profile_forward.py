@@ -2,8 +2,11 @@
 step, on one GPU.
 
 Usage:
-    python scripts_torch/profile_forward.py [--n-infers 1] [--seed 0] [--scan 0] [--box 352] [--out build/profile]
+    python scripts_torch/profile_forward.py [--n-infers 1] [--seed 0] [--scan 0] [--box 352]
+        [--iters 3] [--top 40] [--out build/profile]
     python scripts_torch/profile_forward.py --train [--n-infers 1] [--seed 0] [--out build/profile]
+    python scripts_torch/profile_forward.py [--train] --report-only [--iters 3] [--top 40]
+        [--out build/profile]
 
 One synthetic scan (drawn as ``chip_smoke.py`` and ``bench.py`` draw them:
 ``--n-infers`` augmented views of one scene; ``--scan k`` takes the k-th of
@@ -17,10 +20,11 @@ default the configured 352 box).  Prints
 2. device ms per top-level module, from CUDA events recorded in forward
    hooks; ``(between modules)`` is the rest of the forward (featurizer
    scatter, masks, extraction);
-3. from a ``torch.profiler`` trace of one more forward: the summed kernel
-   time, the device span from the first kernel's start to the last one's
-   end, kernel time by group (the four hand-written kernels, cuDNN
-   convolutions, GEMMs, other torch kernels) and the top kernels.
+3. from a ``torch.profiler`` trace of ``--iters`` more forwards (default
+   3): per forward, the summed kernel time, the device span from the first
+   kernel's start to the last one's end, kernel time by group (the four
+   hand-written kernels, cuDNN convolutions, GEMMs, other torch kernels)
+   and the ``--top`` kernels (default 40).
 
 4. per decoder scale, the kept cells (``top_class != 0`` for some subnet,
    before the cap) against the stage's valid cells, and the extracted
@@ -48,6 +52,13 @@ two warm-up steps it prints
 
 and writes ``train_profile.json`` and ``train_trace.json``.  Needs a CUDA
 device.
+
+``--report-only`` takes no measurement: it reads the Chrome trace saved in
+``--out`` (``forward_trace.json``, with ``--train`` ``train_trace.json``)
+and prints the same leaderboard over its ``--iters`` iterations, on any
+machine (as the reference's ``--report-only`` re-reads its xplane trace).
+A trace with no device kernels (one taken on the CPU) gives the host ops'
+inclusive time instead, labelled so.
 """
 
 from __future__ import annotations
@@ -145,27 +156,63 @@ def kept_cells(net, forward) -> dict:
     return res
 
 
-def kernel_table(trace_path: str) -> dict:
+def kernel_table(trace_path: str, top: int = 40, iters: int = 1,
+                 category: str = "kernel") -> dict:
+    """The trace's events of ``category`` (device kernels by default) per
+    iteration of the ``iters`` it holds: summed time, span, groups (kernels
+    only) and the ``top`` names by time, with their launches."""
     with open(trace_path) as fh:
-        events = [e for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"]
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("cat") == category and "dur" in e]
     if not events:
-        raise RuntimeError("the profiler trace holds no device kernels")
+        raise RuntimeError(f"the profiler trace holds no {category} events")
     by_group = defaultdict(lambda: [0.0, 0])
     by_name = defaultdict(lambda: [0.0, 0])
     for e in events:
-        for table, key in ((by_group, kernel_group(e["name"])), (by_name, e["name"])):
-            table[key][0] += e["dur"] / 1e3
+        tables = [(by_name, e["name"])]
+        if category == "kernel":
+            tables.append((by_group, kernel_group(e["name"])))
+        for table, key in tables:
+            table[key][0] += e["dur"] / 1e3 / iters
             table[key][1] += 1
     start = min(e["ts"] for e in events)
     end = max(e["ts"] + e["dur"] for e in events)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {
-        "kernel_ms": sum(e["dur"] for e in events) / 1e3,
-        "span_ms": (end - start) / 1e3,
-        "groups": {k: {"ms": v[0], "launches": v[1]}
+        "iters": iters,
+        "kernel_ms": sum(e["dur"] for e in events) / 1e3 / iters,
+        "span_ms": (end - start) / 1e3 / iters,
+        "groups": {k: {"ms": v[0], "launches": v[1] / iters}
                    for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])},
-        "top": [{"name": k[:120], "ms": v[0], "launches": v[1]} for k, v in top],
+        "top": [{"name": k[:120], "ms": v[0], "launches": v[1] / iters} for k, v in ranked],
     }
+
+
+def print_kernels(res: dict, what: str = "profiled forward") -> None:
+    """The leaderboard of :func:`kernel_table`: per iteration."""
+    print(f"{what} (per iteration of {res['iters']}): kernel time {res['kernel_ms']:.3f} ms "
+          f"over a device span of {res['span_ms']:.3f} ms "
+          f"({100 * res['kernel_ms'] / res['span_ms']:.1f}% busy)")
+    for k, v in res["groups"].items():
+        print(f"  {k:24s} {v['ms']:9.3f} ms  {100 * v['ms'] / res['kernel_ms']:5.1f}%  "
+              f"{v['launches']:g} launches")
+    print("top kernels:")
+    for t in res["top"]:
+        print(f"  {t['ms']:9.3f} ms  {t['launches']:6g}  {t['name']}")
+
+
+def report(trace: str, top: int, iters: int) -> None:
+    """``--report-only``: the leaderboard of a saved trace."""
+    with open(trace) as fh:
+        has_kernels = any(e.get("cat") == "kernel" for e in json.load(fh)["traceEvents"])
+    if has_kernels:
+        print_kernels(kernel_table(trace, top, iters), f"trace {trace}")
+        return
+    res = kernel_table(trace, top, iters, category="cpu_op")
+    print(f"trace {trace} holds no device kernels: host ops, inclusive time per "
+          f"iteration of {iters}")
+    for t in res["top"]:
+        print(f"  {t['ms']:9.3f} ms  {t['launches']:6g}  {t['name']}")
 
 
 def weight_grad_ms(prof, min_rows: int = 100000) -> dict:
@@ -259,24 +306,17 @@ def train_profile(args) -> None:
     res["weight_grad"] = weight_grad_ms(prof)
     trace = os.path.join(args.out, "train_trace.json")
     prof.export_chrome_trace(trace)
-    res.update(kernel_table(trace))
+    res.update(kernel_table(trace, args.top, 1))
 
     print(f"train step: wall {res['wall_ms']:.3f} ms, device {res['device_ms']:.3f} ms, "
           f"peak {res['peak_gb']:.3f} GB")
     print("device ms per phase (CUDA events):")
     for k, v in res["phases_ms"].items():
         print(f"  {k:28s} {v:9.3f}")
-    print(f"profiled step: kernel time {res['kernel_ms']:.3f} ms over a device span of "
-          f"{res['span_ms']:.3f} ms ({100 * res['kernel_ms'] / res['span_ms']:.1f}% busy); "
-          f"launches {res['launches']}")
-    for k, v in res["groups"].items():
-        print(f"  {k:24s} {v['ms']:9.3f} ms  {100 * v['ms'] / res['kernel_ms']:5.1f}%  "
-              f"{v['launches']} launches")
+    print(f"profiled step: launches {res['launches']}")
     print(f"  weight-gradient per-tap products (in GEMM): {res['weight_grad']['ms']:.3f} ms "
           f"in {res['weight_grad']['calls']} calls")
-    print("top kernels:")
-    for t in res["top"]:
-        print(f"  {t['ms']:9.3f} ms  {t['launches']:4d}  {t['name']}")
+    print_kernels(res, "profiled step")
     with open(os.path.join(args.out, "train_profile.json"), "w") as fh:
         json.dump(res, fh, indent=1)
 
@@ -291,7 +331,16 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     ap.add_argument("--train", action="store_true",
                     help="profile one train step instead of one forward")
+    ap.add_argument("--iters", type=int, default=3,
+                    help="forwards in the profiler trace (the leaderboard is per forward)")
+    ap.add_argument("--top", type=int, default=40, help="kernels in the leaderboard")
+    ap.add_argument("--report-only", action="store_true",
+                    help="print the leaderboard of the trace saved in --out; no measurement")
     args = ap.parse_args()
+    if args.report_only:
+        report(os.path.join(args.out, "train_trace.json" if args.train else
+                            "forward_trace.json"), args.top, 1 if args.train else args.iters)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward.py: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -342,25 +391,19 @@ def main() -> None:
         res["modules_ms"] = module_times(net, forward)
         res["kept"] = kept_cells(net, forward)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            forward()
+            for _ in range(args.iters):
+                forward()
             torch.cuda.synchronize()
     trace = os.path.join(args.out, "forward_trace.json")
     prof.export_chrome_trace(trace)
-    res.update(kernel_table(trace))
+    res.update(kernel_table(trace, args.top, args.iters))
 
     print(f"forward at box {tuple(box)}: wall {res['wall_ms']:.3f} ms, device "
           f"{res['device_ms']:.3f} ms, peak {res['peak_gb']:.3f} GB")
     print("device ms per module (CUDA events):")
     for k, v in res["modules_ms"].items():
         print(f"  {k:24s} {v:9.3f}")
-    print(f"profiled forward: kernel time {res['kernel_ms']:.3f} ms over a device "
-          f"span of {res['span_ms']:.3f} ms ({100 * res['kernel_ms'] / res['span_ms']:.1f}% busy)")
-    for k, v in res["groups"].items():
-        print(f"  {k:24s} {v['ms']:9.3f} ms  {100 * v['ms'] / res['kernel_ms']:5.1f}%  "
-              f"{v['launches']} launches")
-    print("top kernels:")
-    for t in res["top"]:
-        print(f"  {t['ms']:9.3f} ms  {t['launches']:4d}  {t['name']}")
+    print_kernels(res)
     print(f"kept cells per decoder scale ({res['weights']}):")
     for k, v in res["kept"].items():
         print(f"  {k}: {v['kept']} of {v['valid']} valid ({100 * v['fraction']:.2f}%), "

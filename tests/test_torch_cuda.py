@@ -1,8 +1,11 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes (tile edges in x, z and y, both conv tile geometries) and
 every channel width of the flagship path, the differentiable training
-conv's gradients likewise, the whole forward (n_infers 1, 3 and, with the
-KITTI-360 widths, 2) and one whole train step with the kernels against the
+conv's gradients likewise, a batch of scans through rows 1-3 in one
+launch each (bit for bit the per-scan launches) and through row 4 once
+per scan, the whole forward (n_infers 1, 3 and, with the KITTI-360 widths,
+2; a batch of two scans against the per-scan forwards) and one whole
+train step with the kernels against the
 plain versions on the CPU, and the data-parallel step of two gloo ranks
 sharing the card against the single-card step.
 
@@ -592,6 +595,133 @@ def test_forward_box_288_against_352(dev):
     net = build_net(cfg, dev)
     net.reset_parameters(torch.Generator().manual_seed(0))
     cs.two_boxes_check(cfg, net, scan, (288, 288, 32))
+
+
+# --------------------------------------------------------------------------
+# a batch of scans: rows 1-3 in one launch, row 4 once per scan
+# --------------------------------------------------------------------------
+
+
+def _batch_masks(g, dev, shape, ps):
+    return torch.stack([_mask(g, dev, shape, p) for p in ps])
+
+
+def _counted(name, fn, n):
+    before = kernels.LAUNCHES[name]
+    out = fn()
+    assert kernels.LAUNCHES[name] == before + n, (name, kernels.LAUNCHES[name] - before)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(9, 8, 37), (72, 16, 64)])
+@pytest.mark.parametrize("ch", [64, 128, 256])
+def test_masked_conv3_batch_one_launch_equals_per_scan(dev, shape, ch):
+    """Three scans (one with no valid cell) in one launch: each scan bit
+    for bit its own launch, and within the bound of the plain version;
+    every cell written (a NaN-filled pool underneath)."""
+    g = _gen()
+    m = _batch_masks(g, dev, shape, (0.4, 0.0, 0.7))
+    x, skip = _randn(g, dev, 3, *shape, ch), _randn(g, dev, 3, *shape, ch)
+    w = _randn(g, dev, 27, ch, ch, scale=(27 * ch) ** -0.5)
+    kw = dict(bias=torch.randn(ch, generator=g).to(dev) * 0.1, relu_in=True, relu_out=True,
+              affine=(torch.rand(ch, generator=g).to(dev) + 0.5,
+                      torch.randn(ch, generator=g).to(dev) * 0.1))
+    _nan_pool((3, *shape, ch), dev)
+    got = _counted("masked_conv3", lambda: conv.masked_conv3(x, m, w, skip=skip, **kw), 1)
+    for b in range(3):
+        assert torch.equal(got[b], conv.masked_conv3(x[b], m[b], w, skip=skip[b], **kw)), b
+    _check(got, conv.masked_conv3_plain(x, m, w, skip=skip, **kw), m)
+    dym = torch.where(m[..., None], x, torch.zeros((), dtype=x.dtype, device=dev))
+    dx = conv.conv3_dx(dym, m, w)
+    for b in range(3):
+        assert torch.equal(dx[b], conv.conv3_dx(dym[b], m[b], w)), b
+
+
+@pytest.mark.parametrize("shape,ps", [((6, 10, 18), (0.3, 0.0, 1.0)),
+                                      ((96, 16, 96), (0.006, 0.5, 0.02))])
+@pytest.mark.parametrize("ci,co", [(64, 128), (128, 256), (256, 256)])
+def test_down2_fused_batch_one_launch_equals_per_scan(dev, shape, ps, ci, co):
+    g = _gen()
+    m = _batch_masks(g, dev, shape, ps)
+    m2 = maxpool2_mask(m)
+    x = _randn(g, dev, 3, *shape, ci)
+    vec = lambda lo: (torch.rand(co, generator=g) + lo).to(dev)  # noqa: E731
+    rest = (_randn(g, dev, 8, ci, co, scale=(8 * ci) ** -0.5), vec(-0.5),
+            (vec(0.5), vec(-0.5)), (vec(0.5), vec(-0.5)))
+    _nan_pool((*m2.shape, co), dev)
+    got = _counted("down2_fused", lambda: down.down2_fused(x, m, m2, *rest), 1)
+    for b in range(3):
+        assert torch.equal(got[b], down.down2_fused(x[b], m[b], m2[b], *rest)), b
+    _check(got, down.down2_fused_plain(x, m, m2, *rest), m2)
+
+
+@pytest.mark.parametrize("pshape,pk,pc,ps", [((3, 2, 11), 0.6, 0.8, 0.3),
+                                             ((36, 8, 64), 0.6, 0.9, 0.3)])
+@pytest.mark.parametrize("ci,co", [(128, 64), (256, 128), (256, 256)])
+def test_up_preamble_batch_one_launch_equals_per_scan(dev, pshape, pk, pc, ps, ci, co):
+    """Three scans, each at its own box corner (one of them with an empty
+    union): each bit for bit its own launch at that corner, within the
+    bound of the plain version; with the corners permuted the plain
+    version moves."""
+    g = _gen()
+    X2, Z2, Y2 = pshape
+    cshape = (2 * X2, 2 * Z2, 2 * Y2)
+    pkeep = _batch_masks(g, dev, pshape, (pk, 0.0, pk))
+    child = upsample2_mask(pkeep) & _batch_masks(g, dev, cshape, (pc, pc, pc))
+    union = child | _batch_masks(g, dev, cshape, (ps, 0.0, ps))
+    skip = torch.where(union[..., None], _randn(g, dev, 3, *cshape, co),
+                       torch.zeros((), dtype=torch.bfloat16, device=dev))
+    mins = torch.tensor([[-16, 8, -8], [0, 0, 0], [40, -24, 6]], dtype=torch.int32, device=dev)
+    extent = (2 * cshape[0], 2 * cshape[2], 2 * cshape[1])
+    vec = lambda n, lo: (torch.rand(n, generator=g) + lo).to(dev)  # noqa: E731
+    w = (_randn(g, dev, 8, ci, co, scale=ci ** -0.5), vec(co, -0.5),
+         (vec(co, 0.5), vec(co, -0.5)), (vec(co + 3, 0.5), vec(co + 3, -0.5)),
+         _randn(g, dev, co + 3, co, scale=0.1), vec(co, -0.5))
+    parent = _randn(g, dev, 3, X2, Z2, Y2, ci)
+    args = (parent, pkeep, child, union, skip, Box.create(mins, extent), 2, *w)
+    _nan_pool((3, *cshape, co), dev)
+    got = _counted("up_preamble", lambda: deconv.up_preamble(*args), 1)
+    for b in range(3):
+        one = deconv.up_preamble(parent[b], pkeep[b], child[b], union[b], skip[b],
+                                 Box.create(mins[b], extent), 2, *w)
+        assert torch.equal(got[b], one), b
+    ref = deconv.up_preamble_plain(*args)
+    _check(got, ref, union)
+    moved = deconv.up_preamble_plain(parent, pkeep, child, union, skip,
+                                     Box.create(mins.roll(1, 0), extent), 2, *w)
+    assert not torch.equal(moved[0], ref[0])
+
+
+def test_stream_extract_batch_launches_per_scan(dev):
+    g = _gen()
+    keep = _batch_masks(g, dev, (40, 8, 40), (0.5, 0.0, 0.05))
+    pay = _randn(g, dev, 3, 40, 8, 40, 20)
+    got = _counted("stream_extract", lambda: extract.stream_extract(keep, 9000, pay), 3)
+    for b in range(3):
+        one = extract.stream_extract(keep[b], 9000, pay[b])
+        for a, o in zip(got, one):
+            assert torch.equal(a[b], o), b
+    for a, r in zip(got, extract.stream_extract_plain(keep, 9000, pay)):
+        assert a.shape == r.shape and torch.equal(a, r)
+
+
+def test_batched_forward_on_card(dev):
+    """The flagship forward (seeded random init) on a batch of two of
+    bench.py's scans (distinct box corners) against each scan's own
+    forward (``chip_smoke.batch_forward_check``), with no host sync."""
+    import chip_smoke as cs
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.models.unet import build_net, stack_inputs
+
+    cfg = PaSCoConfig()
+    scans = cs.make_scans(cfg, 2, dev)
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    cs.batch_forward_check(cfg, net, scans)
+    bench = cs._script("bench")
+    with torch.no_grad():
+        assert bench.host_syncs(lambda: bench.reduced(net(stack_inputs(
+            [inp for _, inp in scans])))) == []
 
 
 def test_wrappers_raise_on_wrong_input(dev):

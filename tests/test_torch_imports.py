@@ -1,9 +1,10 @@
 """The port imports torch and never JAX, and nothing of the JAX package:
 every ``pasco_torch`` module (the dispatch, evaluation, checkpoint,
 converter, tables, timing, visualization, Robo3D, trainer, scene-loader,
-data-parallel and KITTI-360 modules named), ``chip_smoke.py`` and the
-scripts in ``scripts_torch/`` (the bench, the four evaluation CLIs and the
-four training CLIs named)
+data-parallel, KITTI-360, label-generation and output-converter modules
+named), ``chip_smoke.py`` and the scripts in ``scripts_torch/`` (the
+bench, the four evaluation CLIs, the four training CLIs, the label
+generator and the visualizer named)
 import in a fresh interpreter with
 no ``jax``, ``jaxlib``, ``flax`` or ``pasco_tpu`` module in
 ``sys.modules`` afterwards."""
@@ -36,10 +37,12 @@ for name in ("pasco_torch.inference.dispatch", "pasco_torch.inference.evaluate",
              "pasco_torch.training.checkpoint", "pasco_torch.data.semantic_kitti.robo3d",
              "pasco_torch.training.loop", "pasco_torch.training.step",
              "pasco_torch.data.loader", "pasco_torch.parallel.mesh",
-             "pasco_torch.data.kitti360.dataset", "pasco_torch.data.kitti360.params"):
+             "pasco_torch.data.kitti360.dataset", "pasco_torch.data.kitti360.params",
+             "pasco_torch.data.label_gen", "pasco_torch.utils.converter"):
     assert name in names, name
 for name in ("bench", "eval", "eval_robo3d", "save_outputs_panoptic", "train",
-             "bench_train_step", "make_bench_ckpt", "train_kitti360", "eval_kitti360"):
+             "bench_train_step", "make_bench_ckpt", "train_kitti360", "eval_kitti360",
+             "gen_instance_labels", "visualize"):
     assert f"scripts_torch/{name}.py" in scripts, name
 """
 
