@@ -63,8 +63,8 @@
    forward (kept voxels for every subnet, at least 60 ``masked_conv3``
    and 12 ``stream_extract`` launches per forward), then
    ``run_scene_inference`` (4 outputs) and the ``Evaluator`` with the
-   PQ, SSC mIoU and ECE of every output, and the bench protocol on all
-   six (one run: they all take the 352 box); ``scripts_torch/eval.py`` on
+   PQ, SSC mIoU and ECE of every output, and the bench protocol on the
+   first three (one run: they all take the 352 box); ``scripts_torch/eval.py`` on
    the card on a fake val scan with a released-format checkpoint at full
    widths runs in a subprocess beside step 9's CLIs (:func:`start_eval_cli`);
 6. training, kernel phase: the differentiable conv of every residual
@@ -109,9 +109,21 @@
    synthetic 2-view scans with 8 raw channels (:func:`kitti360_phase`):
    one forward through ``AdaptiveForward`` launching each kernel exactly
    ``forward_launch_floor(2)`` times, ``run_scene_inference`` and the
-   ``Evaluator`` (19 classes), one panoptic train step.
+   ``Evaluator`` (19 classes), one panoptic train step;
+12. the sparse substrate (``substrate="sparse"``, :func:`sparse_phase`),
+   which launches none of the kernels: ``flagship_narrow_config(1)`` with
+   every cap unbound in f32, one forward on the card against one on the
+   CPU from the same weights and scan (TF32 off), the same kept cells at
+   every scale and for every subnet but near ties, the semantic and query
+   logits within ``1e-3 * max|ref| + 1e-4`` (:func:`compare_sparse`);
+   then ``PaSCoConfig()`` on bench.py's first scan at n_infers 1 and on
+   the first MIMO scan at 3 (one warm-up each; device ms, peak memory and
+   host syncs per forward), ``run_scene_inference`` and the ``Evaluator``
+   at n_infers 1, and one ``train_step`` at the train box (finite losses,
+   every BatchNorm's running statistics moved; step time and peak
+   memory), with every launch count 0 over them.
 
-Each ``run_scene_inference`` (steps 5 and 11) takes its forward on the
+Each ``run_scene_inference`` (steps 5, 11 and 12) takes its forward on the
 card in its phase; its host part, the ensembling and the ``Evaluator``,
 runs in a worker process beside the card's later phases
 (:func:`start_scene_inference`), and its lines print after the last phase.
@@ -122,7 +134,9 @@ kernels' numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
 forward, the n_infers 3 trainer and the two entry-point phases, and under
 ``launches_by_path`` those of every path, each counted from 0 just before
 it: the MIMO forward, the n_infers 3 trainer, rank 0's data-parallel step,
-the KITTI-360 forward and the batched B = 4 forward (``batch``); rows 1-5
+the KITTI-360 forward, the batched B = 4 forward (``batch``) and the
+sparse substrate's steps 2-5 of :func:`sparse_phase` (``sparse``, all 0);
+rows 1-5
 again per smaller box, named by box, with the launches at that box in the
 n_infers=1 bench run; rows 1-3 again on the batch of two, named
 ``(batch 2)``, with their launches in the B = 4 forward), then as its last
@@ -2631,6 +2645,200 @@ def kitti360_phase(dev, cols, lap, infer):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sparse substrate (substrate="sparse"): no hand-written kernel
+# ---------------------------------------------------------------------------
+
+SPARSE_TOL = (1e-3, 1e-4)     # x max|ref|, absolute: card against CPU, f32
+
+
+def sparse_config(cfg, n_infers=1, caps_unbound=False):
+    """``cfg`` on the sparse substrate at ``n_infers``; with ``caps_unbound``
+    each decoder and panoptic cap at its stage's row count (the box's
+    cells at the scale), so that no cap binds."""
+    m = dataclasses.replace(cfg.model, substrate="sparse", n_infers=n_infers)
+    cfg = cfg.replace(model=m)
+    if caps_unbound:
+        ex, ey, ez = cfg.scene.box_extent
+        n = ex * ey * ez
+        cfg = cfg.replace(capacity=dataclasses.replace(
+            cfg.capacity, dec_s4=n // 64, dec_s2=n // 8, dec_s1=n, panop_s4=n // 64,
+            panop_s2=n // 8, panop_s1=n))
+    return cfg
+
+
+def _cells(grid, logits):
+    """``{cell: logits row}`` of a grid's valid rows."""
+    m = grid.mask.cpu().numpy()
+    c = grid.coords.cpu().numpy()[m]
+    v = logits.float().cpu().numpy()[m]
+    return {tuple(int(x) for x in row): v[i] for i, row in enumerate(c)}
+
+
+def _near_tie(logits, bound):
+    """Whether some subnet's two top logits of ``logits [S, C]`` lie within
+    ``bound`` (its argmax, and so the cell's keep, may flip)."""
+    top = np.sort(logits, axis=-1)[..., -2:]
+    return bool((top[..., 1] - top[..., 0] <= bound).any())
+
+
+def compare_sparse(ref, got, tol=SPARSE_TOL):
+    """Two sparse-substrate outputs of one input, rows keyed by coordinate:
+    the kept cells at every scale (``sem_grids``) and of every subnet
+    (``panop_grids``) are the same sets, but for cells whose two top logits
+    lie within the bound in the output that keeps them; the semantic
+    logits at the shared cells and the query logits within ``tol[0] *
+    max|ref| + tol[1]``.  Returns ``(kept cells by scale, near-tie cells,
+    max|d| of the sem logits, max|d| of the query logits)``; raises past
+    the bounds."""
+    kept, ties, sem_err = {}, [], 0.0
+    for scale in (4, 2, 1):
+        a = _cells(ref.sem_grids[scale], ref.sem_logits[scale])
+        b = _cells(got.sem_grids[scale], got.sem_logits[scale])
+        bound = tol[0] * max(np.abs(v).max() for v in a.values()) + tol[1]
+        for cell in set(a) ^ set(b):
+            row = a.get(cell, b.get(cell))
+            if not _near_tie(row, bound):
+                raise AssertionError(f"sparse: cell {cell} at s{scale} kept by one run only, "
+                                     f"its logits {row} not near a tie")
+            ties.append((scale, cell))
+        shared = set(a) & set(b)
+        err = max(np.abs(a[k] - b[k]).max() for k in shared)
+        if err > bound:
+            raise AssertionError(f"sparse: s{scale} sem logits max|d| {err} > {bound}")
+        sem_err = max(sem_err, float(err))
+        kept[scale] = len(a)
+        for s in range(ref.panop_grids[scale].mask.shape[0]):
+            pa = set(_cells(ref.panop_grids[scale].subnet(s), ref.panop_grids[scale].feats[s]))
+            pb = set(_cells(got.panop_grids[scale].subnet(s), got.panop_grids[scale].feats[s]))
+            if not pa or any((scale, c) not in ties for c in pa ^ pb):
+                raise AssertionError(f"sparse: subnet {s} at s{scale}: {len(pa)} cells, "
+                                     f"{len(pa ^ pb)} differ")
+    q_ref = ref.predictor.query_logits.float().cpu().numpy()
+    q_err = float(np.abs(q_ref - got.predictor.query_logits.float().cpu().numpy()).max())
+    if q_err > tol[0] * np.abs(q_ref).max() + tol[1]:
+        raise AssertionError(f"sparse: query logits max|d| {q_err}")
+    return kept, ties, sem_err, q_err
+
+
+def sparse_card_check(dev):
+    """Step 1 of the sparse phase: ``flagship_narrow_config(n_infers=1)``
+    on the sparse substrate (full widths, the small box, no cap binding) in
+    f32, one forward on the card and one on the CPU from the same seeded
+    weights and scan (TF32 off), held by :func:`compare_sparse`."""
+    from pasco_torch.core.config import flagship_narrow_config
+    from pasco_torch.models.unet import build_net, scene_to_model_input
+
+    cfg = sparse_config(flagship_narrow_config(n_infers=1), caps_unbound=True)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    col = eval_scene(cfg, np.random.RandomState(0), n_points=cfg.capacity.num_points)
+    net = build_net(cfg, "cpu")
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = net(scene_to_model_input(col, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        got = net.to(dev)(scene_to_model_input(col, dev))
+    kept, ties, sem_err, q_err = compare_sparse(ref, got)
+    print(f"sparse card vs CPU (flagship_narrow, f32, caps unbound): kept {kept}, the same "
+          f"sets at every scale and subnet but {len(ties)} near-tie cells {ties[:8]}; "
+          f"sem logits max|d| {sem_err:.4g}, query logits max|d| {q_err:.4g} (bound "
+          f"{SPARSE_TOL[0]:g} * max|ref| + {SPARSE_TOL[1]:g}); CPU forward {cpu_s:.1f} s",
+          flush=True)
+
+
+def sparse_forward_phase(cfg, scan, label):
+    """Steps 2-3: the full-width sparse forward on ``scan`` after one
+    warm-up, with finite outputs of the reference's shapes and kept voxels
+    at every scale and for every subnet (:func:`check_output`), its device
+    ms between CUDA events, peak memory and host syncs.  Returns the net."""
+    from pasco_torch.models.unet import build_net
+
+    bench = _script("bench")
+    dev = scan[1].point_feats.device
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    inp = scan[1]
+    with torch.no_grad():
+        check_output(cfg, net(inp))                     # warm-up
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = net(inp)
+        b.record()
+        b.synchronize()
+        kept, sub = check_output(cfg, out)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    syncs = bench.host_syncs(lambda: bench.reduced(net(inp)))
+    print(f"{label} (n_infers={cfg.model.n_infers}): device {a.elapsed_time(b):.3f} ms "
+          f"between events, peak {peak:.3f} GB, {len(syncs)} host syncs per forward "
+          f"{syncs}, kept {kept}, kept per subnet {sub}", flush=True)
+    return net
+
+
+def sparse_phase(dev, scan, scan3, train_col, lap, infer):
+    """The sparse substrate on the card: the card against the CPU
+    (:func:`sparse_card_check`), the full-width forward at n_infers 1 on
+    bench.py's first scan and at 3 on the first MIMO scan
+    (:func:`sparse_forward_phase`), ``run_scene_inference`` and the
+    ``Evaluator`` at n_infers 1 (:func:`start_scene_inference` through
+    ``infer``), and one ``train_step`` at the train box.  The path
+    launches none of rows 1-8: the launches are counted from 0 over steps
+    2-5 and must all be 0.  Returns them."""
+    from pasco_torch import kernels
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.data.semantic_kitti.params import CLASS_FREQUENCIES
+    from pasco_torch.models.norm import BatchNorm
+    from pasco_torch.models.unet import scene_to_model_input
+    from pasco_torch.training import loop
+    from pasco_torch.training import step as tstep
+
+    sparse_card_check(dev)
+    lap("sparse: card against CPU")
+    kernels.reset_launches()
+    cfg = sparse_config(PaSCoConfig())
+    net = sparse_forward_phase(cfg, scan, "sparse forward")
+    infer(cfg, net, scan, "sparse_n_infers_1")
+    del net
+    torch.cuda.empty_cache()
+    lap("sparse: forward, n_infers 1")
+    sparse_forward_phase(sparse_config(PaSCoConfig(), MIMO_S), scan3, "sparse MIMO forward")
+    torch.cuda.empty_cache()
+    lap("sparse: forward, n_infers 3")
+    lw, cw = loop.loss_weights(cfg, CLASS_FREQUENCIES, dev)
+    state = loop.new_train_state(cfg, dev, seed=0)
+    stats = {n: m.mean.clone() for n, m in state.net.named_modules() if isinstance(m, BatchNorm)}
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logs = tstep.train_step(state, scene_to_model_input(train_col, dev),
+                            tstep.targets_to_device(train_col.targets, dev), lw, cw,
+                            loop.train_config(cfg), seed=0)
+    vals = {k: float(v) for k, v in logs.items()}
+    step_s = time.perf_counter() - t0
+    moved = sum(not torch.equal(m.mean, stats[n]) for n, m in state.net.named_modules()
+                if isinstance(m, BatchNorm))
+    launches = dict(kernels.LAUNCHES)
+    print(f"sparse train step (n_infers=1, box {loop.train_config(cfg).scene.box_extent}): "
+          f"{step_s:.3f} s (the first at these shapes), peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB, total_loss "
+          f"{vals['total_loss']:.6g}, grad_norm {vals['grad_norm']:.6g}, running statistics "
+          f"moved in {moved} of {len(stats)} BatchNorms", flush=True)
+    if not all(np.isfinite(v) for v in vals.values()) or not vals["grad_norm"] > 0:
+        raise AssertionError(f"sparse train step: {vals}")
+    if moved != len(stats):
+        raise AssertionError(f"sparse train step: running statistics moved in {moved} of "
+                             f"{len(stats)} BatchNorms")
+    print(f"sparse path launches of rows 1-8: {launches}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"sparse path launched kernels: {launches}")
+    del state
+    torch.cuda.empty_cache()
+    lap("sparse: train step")
+    return launches
+
+
 def run_phases(jobs, dev, lap, pool, tmp):
     """Every phase after the build (see the module docstring), on the
     scenes of ``jobs`` (futures of :func:`host_scenes`).  Returns the
@@ -2703,6 +2911,7 @@ def run_phases(jobs, dev, lap, pool, tmp):
     batch_launches = batch_bench_phase(cfg, net, cols_of("batch"))
     lap(f"batched bench protocol, B={', '.join(map(str, BATCH_BENCH))}")
     first = scans[0][1]
+    sparse_scan = scans[0]
     del net, scans, box_scans, by_box     # the MIMO forward's peak holds only its own state
     torch.cuda.empty_cache()
 
@@ -2712,12 +2921,14 @@ def run_phases(jobs, dev, lap, pool, tmp):
     net3 = build_net(cfg3, dev)
     net3.reset_parameters(torch.Generator().manual_seed(0))
     scans3 = scans_of("scans3")
+    sparse_scan3 = scans3[0]
     launches = forward_phase(cfg3, scans3[:N_SCANS], net3, "MIMO forward")
     infer(cfg3, net3, scans3[0], "n_infers_3")
     lap("forward, n_infers 3")
     # one run: every n_infers=3 scan takes the 352 box, so the fixed runs
-    # would repeat the adaptive one
-    bench_phase(cfg3, scans3, net3, "bench n_infers=3", modes=("adaptive",))
+    # would repeat the adaptive one; on three of the six scans, to pay for
+    # the sparse phase
+    bench_phase(cfg3, scans3[:N_SCANS], net3, "bench n_infers=3", modes=("adaptive",))
     lap("bench protocol, n_infers 3")
     del net3, scans3
     torch.cuda.empty_cache()
@@ -2743,6 +2954,8 @@ def run_phases(jobs, dev, lap, pool, tmp):
                "batch": batch_launches}
     by_path["kitti360_s2_forward"] = kitti360_phase(dev, cols_of("kitti360"), lap, infer)
     by_path["dp_step_rank0"] = dp_phase(dev, cols_of("train"), lap)
+    by_path["sparse"] = sparse_phase(dev, sparse_scan, sparse_scan3, cols_of("train")[0], lap,
+                                     infer)
     for name, fut in inferences:
         t0 = time.perf_counter()
         lines = fut.result()

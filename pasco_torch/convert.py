@@ -13,6 +13,13 @@ mechanical:
 * everything else keeps its name and shape: conv kernels
   ``[taps, Ci, Co]``, BatchNorm ``scale``/``bias``/``mean``/``var``, the
   vmapped refiners' leading subnet axis, the queries ``[S, Q, H]``.
+
+The same rules carry the sparse substrate's tree (``PaSCoNet``): its
+submodules keep flax's names, auto-names such as
+``encoder/s1s2_down/SparseDownConv_0`` included, every conv kernel is 3-D
+or more (the refiners' ``[S, 27, C, C]``, the bottleneck's ``[kx, ky, kz,
+C, C]``), and only the ``nn.Dense`` kernels (``cylinder_feat/fc*``, the
+transformer's) are transposed.
 """
 
 from __future__ import annotations

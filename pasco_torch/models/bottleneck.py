@@ -1,18 +1,24 @@
 """Dense completion bottleneck at stride 8 (counterpart of
-``pasco_tpu/models/bottleneck.py:148-218``: ``_Conv3d``, ``SPCDense3D``).
+``pasco_tpu/models/bottleneck.py:148-251``: ``_Conv3d``, ``SPCDense3D`` and
+the sparse substrate's ``DenseBottleneck``).
 
 The reference runs these anisotropic convs as XLA, not Pallas, so the port
 runs them as ``F.conv3d``.  Volumes are ``[B, X, Y, Z, C]`` here (the
 reference module's ``[X, Y, Z, C]`` with the scans of a batch in front), and
-each conv runs once over the batch at N = B.
+each conv runs once over the batch at N = B.  A conv's output and each
+BatchNorm's keep the input's dtype, as in the reference.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pasco_torch.core.sparse import Box, SparseGrid, from_dense, to_dense
+from pasco_torch.models.blocks import add_dropout, apply_dropout
 from pasco_torch.models.norm import BatchNorm
 
 
@@ -25,11 +31,12 @@ class Conv3d(nn.Module):
         self.kernel = nn.Parameter(torch.zeros((*kernel, ch, ch)))
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype):
-        """``x [B, X, Y, Z, C]`` f32 -> f32; operands in ``compute_dtype``."""
+        """``x [B, X, Y, Z, C]`` -> ``x``'s dtype; operands in
+        ``compute_dtype``, f32 accumulation."""
         w = self.kernel.to(compute_dtype).permute(4, 3, 0, 1, 2)
         pad = tuple(k // 2 for k in self.kernel.shape[:3])
         out = F.conv3d(x.to(compute_dtype).permute(0, 4, 1, 2, 3), w, padding=pad)
-        return out.permute(0, 2, 3, 4, 1).float()
+        return out.permute(0, 2, 3, 4, 1).to(x.dtype)
 
 
 class SPCDense3D(nn.Module):
@@ -65,3 +72,24 @@ class SPCDense3D(nn.Module):
         y0 = cbr(s, "ch1")
         y1, y2, y3 = cbr(x, "r1"), cbr(x, "r2"), cbr(x, "r3")
         return x1 + y0 + y1 + y2 + y3
+
+
+class DenseBottleneck(nn.Module):
+    """The sparse substrate's bottleneck (``bottleneck.py:220-251``): the
+    stride-8 grid densified over the whole working box, ``SPCDense3D``,
+    the whole-channel dropout (``dense3d_dropout``), then every cell with a
+    non-zero channel back as a grid of ``out_capacity`` rows."""
+
+    def __init__(self, ch: int, out_capacity: int, dropout: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.out_capacity, self.compute_dtype = out_capacity, compute_dtype
+        self.spc = SPCDense3D(ch)
+        add_dropout(self, "Dropout_0", dropout, "dense_bottleneck/Dropout_0")
+
+    def forward(self, grid: SparseGrid, box: Box, generator=None,
+                drop_on: bool = False) -> SparseGrid:
+        dense = to_dense(grid, box, batch_size=1)
+        dense = self.spc(dense, self.compute_dtype or dense.dtype)
+        dense = apply_dropout(self, "Dropout_0", dense, generator, drop_on)
+        return from_dense(dense, box, grid.stride, self.out_capacity)

@@ -57,7 +57,6 @@ inside a region would change on recompute.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -67,8 +66,10 @@ from torch.utils.checkpoint import checkpoint
 
 from pasco_torch.core.config import PaSCoConfig
 from pasco_torch.core.sparse import Box, SparseGrid, stack_grids
-from pasco_torch.models.blocks import ConvParams
+from pasco_torch.models.blocks import (
+    ConvParams, SpatialDropout, add_dropout, apply_dropout, compute_dtype_of, flax_init_)
 from pasco_torch.models.bottleneck import SPCDense3D
+from pasco_torch.models.cylinder_feat import PointMLP
 from pasco_torch.models.norm import BatchNorm, masked_sums
 from pasco_torch.models.transformer import TransformerPredictor
 from pasco_torch.models.unet import ModelInput, ModelOutput, scan_output
@@ -96,61 +97,6 @@ def _remat(on: bool, fn, *args):
 def _masked(x, mask):
     return torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
-
-
-class SpatialDropout(nn.Module):
-    """Whole-channel dropout on a dense ``[..., C]`` volume
-    (``DenseSpatialDropout``, ``pasco_tpu/models/dense_unet.py:294-319``):
-    one Bernoulli keep per channel, shared by every cell, ``x / (1 - rate)``
-    where kept and 0 elsewhere.  The port's volumes are unpacked, so every
-    channel is a logical one.  ``name`` is the reference's module path."""
-
-    def __init__(self, rate: float, name: str):
-        super().__init__()
-        self.rate, self.name = rate, name
-
-    def draw(self, c: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
-        """The ``[c]`` keep vector."""
-        return torch.rand(c, generator=generator, device=device) < 1.0 - self.rate
-
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        keep = self.draw(x.shape[-1], generator, x.device)
-        return torch.where(keep, x / (1.0 - self.rate),
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-def _add_dropout(owner: nn.Module, attr: str, rate: float, name: str) -> None:
-    """Register a :class:`SpatialDropout` only for a non-zero rate, so a
-    zero rate adds no module and no draw."""
-    if rate > 0.0:
-        owner.add_module(attr, SpatialDropout(rate, name))
-
-
-def _drop(owner: nn.Module, attr: str, x, generator, live: bool):
-    mod = getattr(owner, attr, None)
-    return mod(x, generator) if live and mod is not None else x
-
-
-class PointMLP(nn.Module):
-    """CylinderFeat point MLP (``unet3d_sparse_v2.py:22-34``)."""
-
-    def __init__(self, in_dim: int, out_dim: int):
-        super().__init__()
-        # MaskedBatchNorm: the row count floored after the cross-rank sum
-        bn = lambda c: BatchNorm(c, floor_each_rank=False)  # noqa: E731
-        self.bn_in = bn(in_dim)
-        self.fc1, self.bn1 = nn.Linear(in_dim, 64), bn(64)
-        self.fc2, self.bn2 = nn.Linear(64, 128), bn(128)
-        self.fc3, self.bn3 = nn.Linear(128, 256), bn(256)
-        self.fc4 = nn.Linear(256, out_dim)
-
-    def forward(self, pf, pm):
-        f = self.bn_in(pf, pm)
-        f = torch.relu(self.bn1(self.fc1(f), pm))
-        f = torch.relu(self.bn2(self.fc2(f), pm))
-        f = torch.relu(self.bn3(self.fc3(f), pm))
-        f = self.fc4(f)
-        return torch.where(pm[..., None], f, torch.zeros((), device=f.device))
 
 
 class DenseResBlock(nn.Module):
@@ -235,7 +181,7 @@ class DenseDecoderStage(nn.Module):
                  n_res: int, scale: int, remat: bool, dropout: float = 0.0):
         super().__init__()
         self.scale, self.n_res, self.remat = scale, n_res, remat
-        _add_dropout(self, "drop", dropout, f"dec_s{scale}/drop")
+        add_dropout(self, "drop", dropout, f"dec_s{scale}/drop")
         self.up_kernel = nn.Parameter(torch.zeros((8, ci, ch)))
         self.up_bias = nn.Parameter(torch.zeros((ch,)))
         self.up_bn = BatchNorm(ch)
@@ -319,7 +265,7 @@ class DenseDecoderStage(nn.Module):
         tie rule.  Returns (x, sem [B,X,Z,Y,S,K] bf16, top_class
         [B,X,Z,Y,S], top_prob [B,X,Z,Y,S] bf16 (training only, else None),
         msk)."""
-        x = _drop(self, "drop", x, generator, live)
+        x = apply_dropout(self, "drop", x, generator, live)
         S, ch, K = self.head_kernel.shape
         w = self.head_kernel.to(x.dtype).float().permute(1, 0, 2).reshape(ch, S * K)
         sem = x.reshape(-1, ch).float() @ w + self.head_bias.reshape(-1)
@@ -388,9 +334,9 @@ class DensePaSCoNet(nn.Module):
             self.add_module(f"enc_s{stride}", DenseEncStage(
                 fm[si], fm[si + 1], True, n_res, m.remat))
             name = f"enc_drop_s{stride}"
-            _add_dropout(self, name, m.encoder_dropouts[-3 + si], name)
+            add_dropout(self, name, m.encoder_dropouts[-3 + si], name)
         self.bottleneck = SPCDense3D(fm[3])
-        _add_dropout(self, "dense3d_drop", m.dense3d_dropout, "dense3d_drop")
+        add_dropout(self, "dense3d_drop", m.dense3d_dropout, "dense3d_drop")
         dec_ch = fm[::-1]
         for i, scale in enumerate((4, 2, 1)):
             self.add_module(f"dec_s{scale}", DenseDecoderStage(
@@ -402,56 +348,10 @@ class DensePaSCoNet(nn.Module):
             m.transformer, m.n_classes, S, (m.f * 4, m.f * 2, m.f))
         self.eval()   # built for inference; net.train() selects the training forward
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded random init with the flax initializer families: kaiming-
-        uniform over (taps * Ci) for the sparse-layout convs
-        (``blocks.py:29-34``), variance-scaling(2, fan_in, uniform) for the
-        bottleneck, lecun-normal for dense layers and heads, normal(1) for
-        the queries, zero biases, identity BatchNorm/LayerNorm."""
-
-        def uniform_(p, bound):
-            p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound - bound)
-
-        def lecun_(p, fan_in):
-            # truncated normal at +-2 std, rescaled to unit variance (flax)
-            t = torch.randn(p.shape, generator=generator)
-            while (bad := t.abs() > 2).any():
-                t[bad] = torch.randn(int(bad.sum()), generator=generator)
-            p.copy_(t * math.sqrt(1.0 / fan_in) / 0.87962566103423978)
-
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                w = torch.empty(mod.weight.shape[::-1])
-                lecun_(w, w.shape[0])
-                mod.weight.copy_(w.T)
-                mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-            elif isinstance(mod, BatchNorm):
-                mod.scale.fill_(1.0)
-                mod.bias.zero_()
-                mod.mean.zero_()
-                mod.var.fill_(1.0)
-            elif isinstance(mod, (ConvParams, DenseDown)) and mod.bias is not None:
-                mod.bias.zero_()
-            elif isinstance(mod, DenseDecoderStage):
-                mod.up_bias.zero_()
-                mod.head_bias.zero_()
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "kernel" and ".bottleneck." in f".{name}":
-                kx, ky, kz, ci, _ = p.shape
-                uniform_(p, math.sqrt(6.0 / (kx * ky * kz * ci)))
-            elif leaf in ("kernel", "up_kernel"):
-                k, ci = p.shape[-3], p.shape[-2]
-                uniform_(p, math.sqrt(1.0 / (k * ci)))
-            elif leaf == "head_kernel":
-                S, ch, _ = p.shape
-                lecun_(p, S * ch)
-            elif leaf in ("query_feat", "query_embed"):
-                p.copy_(torch.randn(p.shape, generator=generator))
+        """Seeded random init with the flax initializer families
+        (:func:`~pasco_torch.models.blocks.flax_init_`)."""
+        flax_init_(self, generator)
 
     def forward(self, inp: ModelInput,
                 labelweights: Optional[Dict[int, torch.Tensor]] = None,
@@ -498,7 +398,7 @@ class DensePaSCoNet(nn.Module):
         cap = cfg.capacity
         S = m.n_infers
         B = inp.point_feats.shape[0]
-        cd = torch.bfloat16 if m.compute_dtype == "bfloat16" else torch.float32
+        cd = compute_dtype_of(m)
         box = Box.create(inp.global_min, box_extent or cfg.scene.box_extent)   # [B, 3]
         ex, ey, ez = box.extent
 
@@ -527,12 +427,12 @@ class DensePaSCoNet(nn.Module):
             # The next stage's down and the decoder's skip read the dropped
             # volume (dense_unet.py:1258-1268).
             x, msk = getattr(self, f"enc_s{stride}")(*enc[stride // 2])
-            enc[stride] = (_drop(self, f"enc_drop_s{stride}", x, generator, live), msk)
+            enc[stride] = (apply_dropout(self, f"enc_drop_s{stride}", x, generator, live), msk)
 
         # ---- dense bottleneck at stride 8 ([B, X, Y, Z] inside) -----------
         x8 = enc[8][0].permute(0, 1, 3, 2, 4).float()
         xb = _remat(m.remat and train, self.bottleneck, x8, cd)
-        xb = _drop(self, "dense3d_drop", xb.to(cd), generator, live).permute(0, 1, 3, 2, 4)
+        xb = apply_dropout(self, "dense3d_drop", xb.to(cd), generator, live).permute(0, 1, 3, 2, 4)
         mask8 = bbox_mask(box, 8, inp.global_min, inp.global_max)
         x = torch.where(mask8[..., None], xb, torch.zeros((), dtype=cd,
                                                           device=xb.device)).contiguous()

@@ -1,16 +1,24 @@
-"""Model input/output containers and the network factory (counterpart of
-``pasco_tpu/models/unet.py:30-52, 155-162`` and
-``pasco_tpu/training/step.py:62-71``)."""
+"""Model input/output containers, the sparse-substrate network
+:class:`PaSCoNet` and the network factory (counterpart of
+``pasco_tpu/models/unet.py`` and ``pasco_tpu/training/step.py:62-71``)."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 from pasco_torch.core.config import PaSCoConfig
 from pasco_torch.data.semantic_kitti.collate import CollatedScene
-from pasco_torch.core.sparse import SparseGrid
+from pasco_torch.core.sparse import Box, SparseGrid
+from pasco_torch.models.blocks import compute_dtype_of, flax_init_
+from pasco_torch.models.bottleneck import DenseBottleneck
+from pasco_torch.models.cylinder_feat import CylinderFeat, mimo_merge
+from pasco_torch.models.decoder import GenerativeDecoder
+from pasco_torch.models.encoder import Encoder
+from pasco_torch.models.transformer import TransformerPredictor
+from pasco_torch.ops.dense_ops import point_dropout
 
 
 class ModelInput(NamedTuple):
@@ -78,22 +86,106 @@ def scene_to_model_input(scene: CollatedScene, device) -> ModelInput:
     )
 
 
+class PaSCoNet(nn.Module):
+    """The sparse-substrate network (``cfg.model.substrate == "sparse"``,
+    ``pasco_tpu/models/unet.py:54-152``): point featurizer -> MIMO merge ->
+    sparse encoder -> dense bottleneck -> generative decoder -> mask
+    transformer, on the padded grids of :mod:`pasco_torch.core.sparse`.
+    It takes the calls of :class:`~pasco_torch.models.dense_unet.
+    DensePaSCoNet` (the trainer's, the evaluator's, ``AdaptiveForward``'s)
+    and returns the same ``ModelOutput``, with the decoder's kept voxels in
+    score order instead of the dense substrate's flat-index order.
+
+    One scan per call: a batch of scans raises.  ``net.train()`` selects
+    the training forward (batch statistics, Gumbel-noised caps, dropouts
+    live); ``mc_dropout=True`` makes the dropouts live at inference.  Every
+    draw comes from ``generator``.  The forward keeps every count on the
+    device, so it makes the host wait for the card nowhere."""
+
+    def __init__(self, cfg: PaSCoConfig):
+        super().__init__()
+        m, cap = cfg.model, cfg.capacity
+        self.cfg = cfg
+        self.cd = compute_dtype_of(m)
+        self.cylinder_feat = CylinderFeat(m.in_channels, m.f, cap.enc_s1)
+        self.encoder = Encoder(m, cap)
+        self.dense_bottleneck = DenseBottleneck(m.f_maps[3], cap.bottleneck, m.dense3d_dropout,
+                                                self.cd)
+        self.decoder = GenerativeDecoder(m, cap)
+        self.transformer = TransformerPredictor(m.transformer, m.n_classes, m.n_infers,
+                                                (m.f * 4, m.f * 2, m.f))
+        self.eval()
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded random init with the flax initializer families
+        (:func:`~pasco_torch.models.blocks.flax_init_`)."""
+        flax_init_(self, generator)
+
+    def forward(self, inp: ModelInput,
+                labelweights: Optional[Dict[int, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
+                mc_dropout: bool = False,
+                is_predict_panop: bool = True,
+                box_extent: Optional[Tuple[int, int, int]] = None) -> ModelOutput:
+        """One scene.  ``labelweights`` (scale -> [n_classes]) weight the
+        decoder caps' scores; ``generator`` (on the input's device) draws
+        the point dropout, the dropouts and, in training mode, the caps'
+        Gumbel noise; ``is_predict_panop=False`` skips the refiners and the
+        transformer (``panop_grids`` empty, ``predictor`` None);
+        ``box_extent`` is this call's working box (``cfg.scene.box_extent``
+        by default)."""
+        if inp.point_feats.dim() != 2:
+            raise ValueError("the sparse substrate runs one scan per call, not a batch")
+        cfg = self.cfg
+        m, cap = cfg.model, cfg.capacity
+        S = m.n_infers
+        drop_on = self.training or mc_dropout
+        box = Box.create(inp.global_min, box_extent or cfg.scene.box_extent)
+
+        pm = inp.point_mask
+        if drop_on and m.encoder_dropouts[0] > 0.0:
+            pm = point_dropout(pm, m.encoder_dropouts[0], generator)
+        per_subnet = self.cylinder_feat(inp.point_feats, inp.point_coords, pm, box, S)
+        merged = mimo_merge(per_subnet, box, S, cap.enc_s1)
+        merged = merged.with_feats(merged.feats.to(self.cd))
+
+        enc = self.encoder(merged, box, generator, drop_on)
+        bott = self.dense_bottleneck(enc[3], box, generator, drop_on)
+        dec = self.decoder(bott, enc[:3], box, inp.global_min, inp.global_max, inp.subnet_min,
+                           inp.subnet_max, labelweights, generator, is_predict_panop, drop_on)
+
+        predictor = None
+        if is_predict_panop:
+            one = {k: SparseGrid(g.coords[None], g.feats[None], g.mask[None], g.stride)
+                   for k, g in dec.panop_grids.items()}
+            p = self.transformer(one, Box(box.minimum[None], box.extent), generator, drop_on)
+            predictor = type(p)(p.query_logits[0], p.voxel_logits[0],
+                                [(c[0], v[0]) for c, v in p.aux])
+        return ModelOutput(sem_grids=dec.xs, sem_logits=dec.sem_logits,
+                           panop_grids=dec.panop_grids,
+                           sem_logits_pruned=dec.sem_logits_pruned, predictor=predictor)
+
+
 def build_net(cfg: PaSCoConfig, device="cuda", process_group=None):
-    """The dense-substrate network (the only substrate ported), on
-    ``device``: the card unless the caller asks for the CPU
+    """The network of ``cfg.model.substrate``: ``"dense"`` the
+    dense-with-masks ``DensePaSCoNet`` on the hand-written kernels, any
+    other the sparse :class:`PaSCoNet` (as the reference's ``build_net``
+    picks), on ``device``: the card unless the caller asks for the CPU
     (``device="cpu"``); without a card the default raises.  With a
     ``torch.distributed`` ``process_group`` its training-mode BatchNorms
     reduce their statistics over the group's ranks (SyncBN, the
     reference's ``build_net(cfg, axis_name=)``); off by default."""
-    if cfg.model.substrate != "dense":
-        raise NotImplementedError(
-            "the sparse substrate is not ported (ROADMAP.md, queue 1)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_net: no CUDA device; pass device='cpu' for the CPU")
-    from pasco_torch.models.dense_unet import DensePaSCoNet
     from pasco_torch.models.norm import set_process_group
 
-    net = DensePaSCoNet(cfg).to(device)
+    if cfg.model.substrate == "dense":
+        from pasco_torch.models.dense_unet import DensePaSCoNet
+
+        net = DensePaSCoNet(cfg)
+    else:
+        net = PaSCoNet(cfg)
+    net = net.to(device)
     set_process_group(net, process_group)
     return net

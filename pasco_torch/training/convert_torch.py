@@ -560,8 +560,15 @@ def load_reference_into(
 ) -> List[str]:
     """Load a reference ``state_dict`` into ``net`` with ``strict=True``
     (every parameter and running statistic of ``net`` filled, nothing
-    left over); returns the reference keys that found no home."""
+    left over); returns the reference keys that found no home.  The
+    conversion targets the dense substrate, as the reference's does
+    (``pasco_tpu/training/convert_torch.py:180``): a net of another
+    substrate raises."""
     m = net.cfg.model
+    if m.substrate != "dense":
+        raise ValueError(
+            f"load_reference_into converts to the dense substrate; this net is "
+            f"substrate={m.substrate!r} (build it with substrate='dense')")
     sd, unmatched = reference_to_state_dict(
         state_dict, m.n_infers, bool(m.heavy_decoder))
     net.load_state_dict(sd, strict=True)

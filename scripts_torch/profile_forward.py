@@ -3,7 +3,7 @@ step, on one GPU.
 
 Usage:
     python scripts_torch/profile_forward.py [--n-infers 1] [--seed 0] [--scan 0] [--box 352]
-        [--iters 3] [--top 40] [--out build/profile]
+        [--iters 3] [--top 40] [--out build/profile] [--substrate sparse]
     python scripts_torch/profile_forward.py --train [--n-infers 1] [--seed 0] [--out build/profile]
     python scripts_torch/profile_forward.py [--train] --report-only [--iters 3] [--top 40]
         [--out build/profile]
@@ -29,6 +29,11 @@ default the configured 352 box).  Prints
 4. per decoder scale, the kept cells (``top_class != 0`` for some subnet,
    before the cap) against the stage's valid cells, and the extracted
    (capped) count.
+
+``--substrate sparse`` profiles the sparse substrate's ``PaSCoNet``
+instead (the same scan and box): step 2 then also times the decoder's
+blocks and refiners one by one, and step 4 prints the kept (capped)
+cells per scale.
 
 ``BENCH_TRAINED_CKPT=<npz>`` loads trained weights (the file of
 ``scripts_torch/make_bench_ckpt.py``, n_infers 1) in place of the random
@@ -108,12 +113,14 @@ def device_ms(fn) -> float:
     return a.elapsed_time(b)
 
 
-def module_times(net, forward) -> dict:
+def module_times(net, forward, inner=()) -> dict:
     """Device ms per top-level module of one ``forward()`` of ``net`` (CUDA
-    events)."""
+    events), and per child of each top-level module named in ``inner``."""
     marks = []
     hooks = []
-    for name, mod in net.named_children():
+    top = list(net.named_children())
+    children = [(f"{n}.{c}", m) for n in inner for c, m in getattr(net, n).named_children()]
+    for name, mod in top + children:
         def pre(_m, _a, name=name):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -132,7 +139,7 @@ def module_times(net, forward) -> dict:
     per = defaultdict(float)
     for name, a, b in marks:
         per[name] += a.elapsed_time(b)
-    per["(between modules)"] = total - sum(per.values())
+    per["(between modules)"] = total - sum(per[n] for n, _ in top)
     return {"forward": total, **per}
 
 
@@ -334,6 +341,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=3,
                     help="forwards in the profiler trace (the leaderboard is per forward)")
     ap.add_argument("--top", type=int, default=40, help="kernels in the leaderboard")
+    ap.add_argument("--substrate", default="dense", choices=("dense", "sparse"),
+                    help="the network of cfg.model.substrate (forward only)")
     ap.add_argument("--report-only", action="store_true",
                     help="print the leaderboard of the trace saved in --out; no measurement")
     args = ap.parse_args()
@@ -357,7 +366,9 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     cfg = PaSCoConfig()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=args.n_infers))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=args.n_infers,
+                                                substrate=args.substrate))
+    sparse = args.substrate != "dense"
     _, inp = make_scans(cfg, args.scan + 1, dev, seed=args.seed)[args.scan]
     box = (args.box, args.box, cfg.scene.box_extent[2]) if args.box else cfg.scene.box_extent
     net = build_net(cfg, dev)
@@ -388,8 +399,12 @@ def main() -> None:
         res["wall_ms"] = statistics.median(walls)
         res["device_ms"] = statistics.median(devs)
         res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        res["modules_ms"] = module_times(net, forward)
-        res["kept"] = kept_cells(net, forward)
+        res["modules_ms"] = module_times(net, forward, ("decoder",) if sparse else ())
+        if sparse:
+            out = forward()
+            res["kept"] = {f"s{sc}": int(out.sem_grids[sc].mask.sum()) for sc in (4, 2, 1)}
+        else:
+            res["kept"] = kept_cells(net, forward)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(args.iters):
                 forward()
@@ -406,8 +421,11 @@ def main() -> None:
     print_kernels(res)
     print(f"kept cells per decoder scale ({res['weights']}):")
     for k, v in res["kept"].items():
-        print(f"  {k}: {v['kept']} of {v['valid']} valid ({100 * v['fraction']:.2f}%), "
-              f"{v['extracted']} extracted")
+        if sparse:
+            print(f"  {k}: {v} kept (capped)")
+        else:
+            print(f"  {k}: {v['kept']} of {v['valid']} valid ({100 * v['fraction']:.2f}%), "
+                  f"{v['extracted']} extracted")
     with open(os.path.join(args.out, "forward_profile.json"), "w") as fh:
         json.dump(res, fh, indent=1)
 

@@ -937,3 +937,62 @@ def test_trainer_on_card_with_resume(dev, tmp_path):
     more = train(cfg, data(4), n_epochs=1, limit_train_batches=2, log_dir=str(tmp_path),
                  accum_steps=2, num_workers=2, device=dev)
     assert [r["step"] for r in more.history] == [5]
+
+
+def test_sparse_forward_matches_cpu(dev):
+    """The sparse substrate (``substrate="sparse"``, no hand-written
+    kernel) at ``tiny_config`` in f32 with every cap unbound
+    (``chip_smoke.sparse_config``), n_infers 1 and 3: the forward on the
+    card against the same net on the CPU (TF32 off), held by
+    ``chip_smoke.compare_sparse``: the same kept cells at every scale and
+    for every subnet, but near ties, and the semantic and query logits
+    within ``1e-3 * max|ref| + 1e-4``; no row of the kernel table
+    launched."""
+    import dataclasses
+
+    import numpy as np
+    from chip_smoke import compare_sparse, eval_scene, sparse_config
+
+    from pasco_torch.core.config import tiny_config
+    from pasco_torch.models.unet import build_net, scene_to_model_input
+
+    for S in (1, 3):
+        cfg = sparse_config(tiny_config(S), caps_unbound=True)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+        col = eval_scene(cfg, np.random.RandomState(S), n_points=1500, max_angle=10.0)
+        net = build_net(cfg, device="cpu")
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        kernels.reset_launches()
+        with torch.no_grad():
+            ref = net(scene_to_model_input(col, "cpu"))
+            got = net.to(dev)(scene_to_model_input(col, dev))
+        kept, _, _, _ = compare_sparse(ref, got)
+        assert min(kept.values()) > 0
+        assert not any(kernels.LAUNCHES.values())
+
+
+def test_rulebook_conv_fn_on_card(dev):
+    """``RulebookConvFn`` on the card (forward, dX, dW; f32, TF32 off)
+    against autograd of the plain gather form, ``x[idx] @ w`` summed over
+    the taps, in f64 on the same inputs, within ``1e-5 * max|ref|``; at a
+    decoder-like shape (20000 rows of 64 channels, 27 taps, a tenth of the
+    neighbours absent)."""
+    from pasco_torch.ops.sparse_conv import RulebookConvFn
+
+    g = _gen()
+    n, ci, co = 20000, 64, 64
+    x = torch.randn(n, ci, generator=g).to(dev)
+    w = torch.randn(27, ci, co, generator=g).to(dev) * 0.05
+    idx = torch.randint(0, n, (n, 27), generator=g)
+    idx[torch.rand(n, 27, generator=g) < 0.1] = n
+    idx = idx.to(dev)
+    dy = torch.randn(n, co, generator=g).to(dev)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = RulebookConvFn.apply(xa, idx, wa)
+    out.backward(dy)
+    xb, wb = x.double().requires_grad_(), w.double().requires_grad_()
+    ref = torch.einsum("nkc,kcd->nd", torch.cat([xb, xb.new_zeros(1, ci)])[idx], wb)
+    ref.backward(dy.double())
+    for got, want in ((out, ref), (xa.grad, xb.grad), (wa.grad, wb.grad)):
+        err = (got.double() - want.detach()).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err

@@ -2,7 +2,7 @@
 every ``pasco_torch`` module (the dispatch, evaluation, checkpoint,
 converter, tables, timing, visualization, Robo3D, trainer, scene-loader,
 data-parallel, KITTI-360, label-generation and output-converter modules
-named), ``chip_smoke.py`` and the scripts in ``scripts_torch/`` (the
+and the sparse substrate's modules named), ``chip_smoke.py`` and the scripts in ``scripts_torch/`` (the
 bench, the four evaluation CLIs, the four training CLIs, the label
 generator and the visualizer named)
 import in a fresh interpreter with
@@ -38,7 +38,12 @@ for name in ("pasco_torch.inference.dispatch", "pasco_torch.inference.evaluate",
              "pasco_torch.training.loop", "pasco_torch.training.step",
              "pasco_torch.data.loader", "pasco_torch.parallel.mesh",
              "pasco_torch.data.kitti360.dataset", "pasco_torch.data.kitti360.params",
-             "pasco_torch.data.label_gen", "pasco_torch.utils.converter"):
+             "pasco_torch.data.label_gen", "pasco_torch.utils.converter",
+             "pasco_torch.core.sparse", "pasco_torch.ops.sparse_conv", "pasco_torch.ops.knn",
+             "pasco_torch.models.blocks", "pasco_torch.models.cylinder_feat",
+             "pasco_torch.models.encoder", "pasco_torch.models.bottleneck",
+             "pasco_torch.models.decoder", "pasco_torch.models.maskpls",
+             "pasco_torch.models.unet"):
     assert name in names, name
 for name in ("bench", "eval", "eval_robo3d", "save_outputs_panoptic", "train",
              "bench_train_step", "make_bench_ckpt", "train_kitti360", "eval_kitti360",
