@@ -121,7 +121,23 @@
    host syncs per forward), ``run_scene_inference`` and the ``Evaluator``
    at n_infers 1, and one ``train_step`` at the train box (finite losses,
    every BatchNorm's running statistics moved; step time and peak
-   memory), with every launch count 0 over them.
+   memory), with every launch count 0 over them;
+13. the WaffleIron frontend, which launches none of the kernels:
+   ``scripts_torch/extract_point_features.py`` on the card (2 votes: the
+   reference's 10 cut to 2) on the fake val scan, the port's
+   ``KittiDataset`` reading its pickle as 283 columns and
+   ``scripts_torch/eval.py`` on it at ``flagship_narrow`` in a subprocess
+   beside step 10 (:func:`start_waffle_eval`); then
+   (:func:`waffleiron_phase`) the Segmenter at depth 4 and 32
+   channels on the card against the CPU in eval and train mode (logits,
+   tokens, parked BatchNorm statistics within ``1e-4 * max|ref| + 1e-5``:
+   :func:`waffle_card_check`); then ``Segmenter()`` (48 x 256) on a
+   120000-point scan (device ms per forward, the host ms of its kNN and
+   grid indices, peak memory, host syncs) and
+   ``scripts_torch/train_waffleiron.py --synthetic`` at its defaults for 2
+   epochs of 4 steps and a resumed third (s per step, peak memory, finite
+   losses, both checkpoints), with every launch count 0 over the forward
+   and the trainer.
 
 Each ``run_scene_inference`` (steps 5, 11 and 12) takes its forward on the
 card in its phase; its host part, the ensembling and the ``Evaluator``,
@@ -134,8 +150,9 @@ kernels' numbers (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and
 forward, the n_infers 3 trainer and the two entry-point phases, and under
 ``launches_by_path`` those of every path, each counted from 0 just before
 it: the MIMO forward, the n_infers 3 trainer, rank 0's data-parallel step,
-the KITTI-360 forward, the batched B = 4 forward (``batch``) and the
-sparse substrate's steps 2-5 of :func:`sparse_phase` (``sparse``, all 0);
+the KITTI-360 forward, the batched B = 4 forward (``batch``), the
+sparse substrate's steps 2-5 of :func:`sparse_phase` (``sparse``, all 0)
+and the WaffleIron forward and trainer (``waffleiron``, all 0);
 rows 1-5
 again per smaller box, named by box, with the launches at that box in the
 n_infers=1 bench run; rows 1-3 again on the batch of two, named
@@ -2036,37 +2053,45 @@ def batch_bench_phase(cfg, net, cols):
     return launches
 
 
-def start_eval_cli(tmp):
-    """``scripts_torch/eval.py`` on the card in a subprocess: the fake val
-    scan of ``tests/test_eval_script.py`` written under ``tmp``, the
-    ``flagship_narrow`` preset (full widths) and a released-format
-    ``--torch_ckpt`` from ``synthetic_reference_state_dict`` at those
-    widths and the scan's 8 input features.  Returns the process and its
-    output files for :func:`finish_eval_cli`."""
+def write_fake_val_scan(root):
+    """The fake val scan of ``tests/test_eval_script.py`` (seq 08, frame
+    000000: a 16x16x8 voxel blob and 400 points in it) under ``root``."""
     import importlib.util
-
-    from pasco_torch.inference.evaluate import eval_config
-    from pasco_torch.training.convert_torch import synthetic_reference_state_dict
 
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(
         "fake_val_scan", os.path.join(here, "tests", "test_eval_script.py"))
     fake = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fake)
+    fake._write_fake_val_scan(root)
+
+
+def start_eval_cli(tmp, in_channels=8, preprocess_root=""):
+    """``scripts_torch/eval.py`` on the card in a subprocess on the fake val
+    scan under ``tmp`` (:func:`write_fake_val_scan`), its point features
+    read from ``preprocess_root``'s WaffleIron pickles where one is given:
+    the ``flagship_narrow`` preset (full widths) and a released-format
+    ``--torch_ckpt`` from ``synthetic_reference_state_dict`` at those
+    widths and ``in_channels`` input features.  Returns the process and its
+    output files for :func:`finish_eval_cli`."""
+    from pasco_torch.inference.evaluate import eval_config
+    from pasco_torch.training.convert_torch import synthetic_reference_state_dict
+
+    here = os.path.dirname(os.path.abspath(__file__))
     m = eval_config("flagship_narrow", 1).model
-    fake._write_fake_val_scan(tmp)
     sd = synthetic_reference_state_dict(
-        np.random.RandomState(3), n_infers=1, f=m.f, n_classes=m.n_classes, in_channels=8,
-        hidden_dim=m.transformer.hidden_dim, num_queries=m.transformer.num_queries,
-        dim_feedforward=m.transformer.dim_feedforward)
+        np.random.RandomState(3), n_infers=1, f=m.f, n_classes=m.n_classes,
+        in_channels=in_channels, hidden_dim=m.transformer.hidden_dim,
+        num_queries=m.transformer.num_queries, dim_feedforward=m.transformer.dim_feedforward)
     ckpt = os.path.join(tmp, "pasco_single.ckpt")
     torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}},
                ckpt)
     logs = [tempfile.TemporaryFile("w+") for _ in range(2)]    # no pipe to fill unread
     proc = subprocess.Popen(
         [sys.executable, os.path.join(here, "scripts_torch", "eval.py"), "--dataset_root", tmp,
-         "--torch_ckpt", ckpt, "--n_infers", "1", "--limit_batches", "1", "--config",
-         "flagship_narrow"], stdout=logs[0], stderr=logs[1], text=True)
+         "--dataset_preprocess_root", preprocess_root, "--torch_ckpt", ckpt, "--n_infers", "1",
+         "--limit_batches", "1", "--config", "flagship_narrow"],
+        stdout=logs[0], stderr=logs[1], text=True)
     return proc, logs
 
 
@@ -2839,6 +2864,237 @@ def sparse_phase(dev, scan, scan3, train_col, lap, infer):
     return launches
 
 
+# ---------------------------------------------------------------------------
+
+WAFFLE_TOL = (1e-4, 1e-5)     # x max|ref|, absolute: card against CPU, f32
+WAFFLE_POINTS = 120000        # a SemanticKITTI scan's points
+WAFFLE_NARROW = dict(n_classes=19, channels=32, depth=4, in_channels=5,
+                     grids_shape=((64, 64), (64, 8), (64, 8)))
+
+
+def waffle_scan(n, seed, grids_shape=None):
+    """A synthetic LiDAR-like scan of ``n`` points in the extractor's layout
+    ``[intensity, x, y, z, |xyz|]`` (a ground plane and scattered
+    obstacles, 2-50 m away), with its host indices: ``(feats [n, 5],
+    neighbors [16, n], cells [3, n], host ms of knn_indices +
+    grid_cell_indices)``."""
+    from pasco_torch.models.waffleiron import GRIDS, grid_cell_indices, knn_indices
+
+    r = np.random.RandomState(seed)
+    rng_ = 2 + 48 * r.rand(n) ** 2
+    az = r.rand(n) * 2 * np.pi
+    ground = r.rand(n) < 0.6
+    z = np.where(ground, -1.73 + 0.05 * r.randn(n), r.uniform(-1.7, 1.5, n))
+    xyz = np.stack([rng_ * np.cos(az), rng_ * np.sin(az), z], 1)
+    feats = np.concatenate([r.rand(n, 1), xyz, np.linalg.norm(xyz, axis=1, keepdims=True)],
+                           1).astype(np.float32)
+    t0 = time.perf_counter()
+    nbrs = knn_indices(xyz, 16)
+    cells = grid_cell_indices(xyz, grids_shape or GRIDS)
+    return feats, nbrs, cells, (time.perf_counter() - t0) * 1e3
+
+
+def waffle_args(scan, dev):
+    feats, nbrs, cells = scan[:3]
+    return (torch.from_numpy(feats).to(dev), torch.from_numpy(nbrs).to(dev, torch.int64),
+            torch.from_numpy(cells).to(dev, torch.int64),
+            torch.ones(len(feats), dtype=torch.bool, device=dev))
+
+
+def _waffle_close(what, got, ref):
+    """max|got - ref| over its bound ``WAFFLE_TOL[0] * max|ref| +
+    WAFFLE_TOL[1]``; raises past 1."""
+    got, ref = got.detach().float().cpu(), ref.detach().float()
+    err = (got - ref).abs().max().item()
+    bound = WAFFLE_TOL[0] * ref.abs().max().item() + WAFFLE_TOL[1]
+    if not err <= bound:
+        raise AssertionError(f"waffleiron card vs CPU: {what} max|d| {err} > {bound}")
+    return err / bound
+
+
+def waffle_card_check(dev):
+    """Step 2: the Segmenter at ``WAFFLE_NARROW`` (depth 4, 32 channels)
+    on a 4000-point scan, on the card and on the CPU from the same seeded
+    weights, f32 (TF32 off), in eval mode (logits, tokens) and in train
+    mode (logits, tokens and every BatchNorm's parked statistics), within
+    ``WAFFLE_TOL[0] * max|ref| + WAFFLE_TOL[1]``."""
+    from pasco_torch.models.norm import BatchNorm
+    from pasco_torch.models.waffleiron import Segmenter
+
+    scan = waffle_scan(4000, seed=1, grids_shape=WAFFLE_NARROW["grids_shape"])
+    cpu = Segmenter(**WAFFLE_NARROW)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    card = Segmenter(**WAFFLE_NARROW).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    errs = {}
+    for mode in ("eval", "train"):
+        cpu.train(mode == "train")
+        card.train(mode == "train")
+        with torch.no_grad():
+            want = cpu(*waffle_args(scan, "cpu"))
+            got = card(*waffle_args(scan, dev))
+        errs[f"{mode} logits"] = _waffle_close(f"{mode} logits", got[0], want[0])
+        errs[f"{mode} tokens"] = _waffle_close(f"{mode} tokens", got[1], want[1])
+    stats = [(n, m.pending[None], dict(cpu.named_modules())[n].pending[None])
+             for n, m in card.named_modules() if isinstance(m, BatchNorm)]
+    if len(stats) != 3 + 2 * WAFFLE_NARROW["depth"]:
+        raise AssertionError(f"waffleiron card vs CPU: {len(stats)} parked statistics")
+    errs["parked statistics"] = max(_waffle_close(f"{n} {k}", g, w) for n, got, want in stats
+                                    for k, g, w in zip(("mean", "var"), got, want))
+    print(f"waffleiron card vs CPU (depth 4, 32 channels, 4000 points, f32): max|d| over "
+          f"its bound {WAFFLE_TOL[0]:g} * max|ref| + {WAFFLE_TOL[1]:g}: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in errs.items()), flush=True)
+
+
+def waffle_forward_phase(dev, scan):
+    """Step 1: ``Segmenter()`` (48 x 256, seeded init) in eval mode on one
+    ``WAFFLE_POINTS``-point scan: device ms per forward between CUDA events
+    after one warm-up (three forwards), peak memory, host syncs, finite
+    logits and tokens of the expected shapes."""
+    from pasco_torch.models.waffleiron import Segmenter
+
+    bench = _script("bench")
+    net = Segmenter()
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    net = net.to(dev).eval()
+    args = waffle_args(scan, dev)
+    times = []
+    with torch.no_grad():
+        net(*args)                                      # warm-up
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(3):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            logits, tokens = net(*args)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    syncs = bench.host_syncs(lambda: net(*args))
+    n = len(scan[0])
+    if logits.shape != (n, 19) or tokens.shape != (n, 256):
+        raise AssertionError(f"waffleiron forward: logits {tuple(logits.shape)}, tokens "
+                             f"{tuple(tokens.shape)}")
+    if not (torch.isfinite(logits).all() and torch.isfinite(tokens).all()):
+        raise AssertionError("waffleiron forward: non-finite outputs")
+    print(f"waffleiron forward (Segmenter(), 48 x 256, {n} points, eval): device "
+          f"{statistics.median(times):.3f} ms between events (median of "
+          f"{', '.join(f'{t:.3f}' for t in times)}), host {scan[3]:.1f} ms for knn_indices + "
+          f"grid_cell_indices, peak {peak:.3f} GB, {len(syncs)} host syncs per forward {syncs}; "
+          f"logits {tuple(logits.shape)}, tokens {tuple(tokens.shape)} finite", flush=True)
+    if syncs:
+        raise AssertionError(f"waffleiron forward: host syncs {syncs}")
+
+
+def waffle_extract(dev, root):
+    """Step 3, first half: ``scripts_torch/extract_point_features.py`` on the
+    card (``--num_votes 2 --frame_interval 1``) on the fake val scan under
+    ``root``, into ``root/pre``; the port's ``KittiDataset`` must read the
+    pickle as the flagship's 283 input channels.  Returns the preprocess
+    root."""
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.data.semantic_kitti.collate import collate
+    from pasco_torch.data.semantic_kitti.dataset import KittiDataset
+
+    pre = os.path.join(root, "pre")
+    t0 = time.perf_counter()
+    _script("extract_point_features").main(
+        ["--dataset_root", root, "--output_root", pre, "--num_votes", "2",
+         "--frame_interval", "1", "--device", str(dev)])
+    extract_s = time.perf_counter() - t0
+    cfg = PaSCoConfig()
+    width = collate(KittiDataset(root=root, preprocess_root=pre, split="val")[0],
+                    cfg).point_feats.shape[-1]
+    print(f"waffleiron extraction CLI (2 votes, on the card): {extract_s:.2f} s; the port's "
+          f"KittiDataset reads point_feats of {width} columns", flush=True)
+    if width != cfg.model.in_channels:
+        raise AssertionError(f"waffleiron extraction: point_feats of {width} columns, not "
+                             f"{cfg.model.in_channels}")
+    return pre
+
+
+def waffle_trainer_phase(dev, out):
+    """Step 4: ``scripts_torch/train_waffleiron.py --synthetic`` at full
+    width with its defaults (batch 2, 20000 points) for 2 epochs of 4 steps,
+    then ``--resume --epochs 3``: s per step (median after the first), peak
+    memory, finite losses, both checkpoints, the resumed run at epoch 2."""
+    main = _script("train_waffleiron").main
+    argv = ["--synthetic", "--steps_per_epoch", "4", "--out", out, "--device", str(dev)]
+    t0 = time.perf_counter()
+    trainer = main([*argv, "--epochs", "2"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = list(trainer.step_sec)
+    if trainer.current_epoch != 2 or trainer.state.step != 8:
+        raise AssertionError(f"waffleiron trainer: epoch {trainer.current_epoch}, step "
+                             f"{trainer.state.step}")
+    if sorted(f for f in os.listdir(out) if f.endswith(".pkl")) != ["ckpt_best.pkl",
+                                                                    "ckpt_last.pkl"]:
+        raise AssertionError(f"waffleiron trainer: checkpoints {os.listdir(out)}")
+    resumed = main([*argv, "--epochs", "3", "--resume"])
+    with open(os.path.join(out, "log.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    if [r["epoch"] for r in logs] != [0, 0, 1, 1, 2, 2] or resumed.state.step != 12:
+        raise AssertionError(f"waffleiron trainer: resumed run logged epochs "
+                             f"{[r['epoch'] for r in logs]}, step {resumed.state.step}")
+    if not all(np.isfinite(r["loss"]) for r in logs):
+        raise AssertionError(f"waffleiron trainer: losses {[r['loss'] for r in logs]}")
+    losses = ", ".join(f"{r['tag']} {r['loss']:.4f}" for r in logs)
+    print(f"waffleiron trainer (48 x 256, batch 2 x 20000 points): {len(steps)} steps, median "
+          f"{statistics.median(steps[1:]):.4f} s per step after the first ({steps[0]:.3f} s "
+          f"the first; all {', '.join(f'{t:.4f}' for t in steps)}), peak {peak:.3f} GB, "
+          f"2 epochs {wall:.1f} s with validation; losses {losses}; ckpt_best.pkl and "
+          f"ckpt_last.pkl written; the resumed run started at epoch 2 (step 8 -> 12, "
+          f"{statistics.median(resumed.step_sec[1:]):.4f} s per step)", flush=True)
+
+
+def start_waffle_eval(dev, root):
+    """Step 3: the fake val scan under ``root``, :func:`waffle_extract` on
+    the card, and ``scripts_torch/eval.py`` on its pickle started in a
+    subprocess (:func:`start_eval_cli` with 283 input channels), to run
+    beside the data-parallel phase.  Returns the process and its output
+    files for :func:`waffleiron_phase`."""
+    os.makedirs(root)
+    write_fake_val_scan(root)
+    pre = waffle_extract(dev, root)
+    return start_eval_cli(root, in_channels=283, preprocess_root=pre)
+
+
+def waffleiron_phase(dev, lap, eval_job):
+    """The WaffleIron frontend on the card: ``scripts_torch/eval.py`` on
+    the extraction's pickle (``eval_job``, from :func:`start_waffle_eval`)
+    must have exited 0 with every table; the card against the CPU at a
+    narrow width (:func:`waffle_card_check`); the timed full-width forward
+    on a 120000-point scan (:func:`waffle_forward_phase`) and the trainer
+    CLI with its resume (:func:`waffle_trainer_phase`).  The frontend
+    launches none of rows 1-8: the launches over the forward and the
+    trainer must all be 0.  Returns them."""
+    from pasco_torch import kernels
+
+    finish_eval_cli(*eval_job)
+    waffle_card_check(dev)
+    scan = waffle_scan(WAFFLE_POINTS, seed=0)
+    lap("waffleiron: card against CPU, a scan's host indices")
+    kernels.reset_launches()
+    waffle_forward_phase(dev, scan)
+    launches = dict(kernels.LAUNCHES)
+    del scan
+    torch.cuda.empty_cache()
+    lap("waffleiron: forward, 120000 points")
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_waffle_") as out:
+        waffle_trainer_phase(dev, out)
+    launches = {k: v + kernels.LAUNCHES[k] for k, v in launches.items()}
+    torch.cuda.empty_cache()
+    lap("waffleiron: trainer CLI and resume")
+    print(f"waffleiron path launches of rows 1-8 (forward and trainer): {launches}",
+          flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"waffleiron path launched kernels: {launches}")
+    return launches
+
+
 def run_phases(jobs, dev, lap, pool, tmp):
     """Every phase after the build (see the module docstring), on the
     scenes of ``jobs`` (futures of :func:`host_scenes`).  Returns the
@@ -2941,6 +3197,7 @@ def run_phases(jobs, dev, lap, pool, tmp):
     train_launches = trainer_mimo_phase(dev)
     lap("trainer, n_infers 3")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as eval_tmp:
+        write_fake_val_scan(eval_tmp)
         proc, logs = start_eval_cli(eval_tmp)    # beside the CLI phase, on the card too
         try:
             cli_phase(dev, first)
@@ -2953,9 +3210,20 @@ def run_phases(jobs, dev, lap, pool, tmp):
     by_path = {"mimo_forward": launches, "trainer_n_infers_3": train_launches,
                "batch": batch_launches}
     by_path["kitti360_s2_forward"] = kitti360_phase(dev, cols_of("kitti360"), lap, infer)
-    by_path["dp_step_rank0"] = dp_phase(dev, cols_of("train"), lap)
-    by_path["sparse"] = sparse_phase(dev, sparse_scan, sparse_scan3, cols_of("train")[0], lap,
-                                     infer)
+    # the WaffleIron extraction's eval.py runs beside the data-parallel
+    # phase (a correctness check of two ranks sharing the card)
+    waffle_eval = start_waffle_eval(dev, os.path.join(tmp, "waffle"))
+    lap("waffleiron: extraction CLI, eval.py started")
+    try:
+        by_path["dp_step_rank0"] = dp_phase(dev, cols_of("train"), lap)
+        by_path["sparse"] = sparse_phase(dev, sparse_scan, sparse_scan3, cols_of("train")[0],
+                                         lap, infer)
+        by_path["waffleiron"] = waffleiron_phase(dev, lap, waffle_eval)
+    except BaseException:
+        if waffle_eval[0].poll() is None:
+            waffle_eval[0].kill()
+            waffle_eval[0].wait()
+        raise
     for name, fut in inferences:
         t0 = time.perf_counter()
         lines = fut.result()

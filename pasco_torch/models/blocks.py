@@ -323,6 +323,16 @@ class DepthwiseSeparableConvMultiheads(nn.Module):
 
 
 @torch.no_grad()
+def lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's lecun-normal: a normal truncated at +-2 std, rescaled to
+    unit variance, times ``sqrt(1 / fan_in)``."""
+    t = torch.randn(p.shape, generator=generator)
+    while (bad := t.abs() > 2).any():
+        t[bad] = torch.randn(int(bad.sum()), generator=generator)
+    p.copy_(t * math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
+@torch.no_grad()
 def flax_init_(net: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init of ``net`` with the flax initializer families:
     kaiming-uniform over ``(taps * Ci)`` for the reference-layout conv
@@ -334,17 +344,10 @@ def flax_init_(net: nn.Module, generator: torch.Generator) -> None:
     def uniform_(p, bound):
         p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound - bound)
 
-    def lecun_(p, fan_in):
-        # truncated normal at +-2 std, rescaled to unit variance (flax)
-        t = torch.randn(p.shape, generator=generator)
-        while (bad := t.abs() > 2).any():
-            t[bad] = torch.randn(int(bad.sum()), generator=generator)
-        p.copy_(t * math.sqrt(1.0 / fan_in) / 0.87962566103423978)
-
     for mod in net.modules():
         if isinstance(mod, (nn.Linear, PointwiseConvMultiheads)):
             w = torch.empty(mod.weight.shape[::-1])
-            lecun_(w, w.shape[0])
+            lecun_normal_(w, w.shape[0], generator)
             mod.weight.copy_(w.T)
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
@@ -364,6 +367,6 @@ def flax_init_(net: nn.Module, generator: torch.Generator) -> None:
             uniform_(p, math.sqrt(1.0 / (k * ci)))
         elif leaf == "head_kernel":
             S, ch, _ = p.shape
-            lecun_(p, S * ch)
+            lecun_normal_(p, S * ch, generator)
         elif leaf in ("query_feat", "query_embed"):
             p.copy_(torch.randn(p.shape, generator=generator))

@@ -7,6 +7,7 @@ Usage:
     python scripts_torch/profile_forward.py --train [--n-infers 1] [--seed 0] [--out build/profile]
     python scripts_torch/profile_forward.py [--train] --report-only [--iters 3] [--top 40]
         [--out build/profile]
+    python scripts_torch/profile_forward.py --waffleiron [--train] [--iters 3] [--top 40]
 
 One synthetic scan (drawn as ``chip_smoke.py`` and ``bench.py`` draw them:
 ``--n-infers`` augmented views of one scene; ``--scan k`` takes the k-th of
@@ -58,8 +59,19 @@ two warm-up steps it prints
 and writes ``train_profile.json`` and ``train_trace.json``.  Needs a CUDA
 device.
 
+``--waffleiron`` profiles PaSCo's point-feature frontend instead: the
+full-width ``Segmenter()`` in eval mode on ``chip_smoke.waffle_scan``'s
+120000-point scan (wall and device ms of one forward, medians of 3 after
+two warm-ups, the peak, then the kernel leaderboard of ``--iters``
+forwards), or with ``--train`` one ``waffleiron_train_step`` at the
+trainer's defaults (two synthetic scans of ``train_waffleiron.py``,
+padded to 20000 points; after two warm-up steps, the same numbers of one
+step and its leaderboard); it writes ``waffleiron_{forward,train}_
+profile.json`` and ``..._trace.json``.
+
 ``--report-only`` takes no measurement: it reads the Chrome trace saved in
-``--out`` (``forward_trace.json``, with ``--train`` ``train_trace.json``)
+``--out`` (``forward_trace.json``, with ``--train`` ``train_trace.json``;
+with ``--waffleiron`` the ``waffleiron_`` ones)
 and prints the same leaderboard over its ``--iters`` iterations, on any
 machine (as the reference's ``--report-only`` re-reads its xplane trace).
 A trace with no device kernels (one taken on the CPU) gives the host ops'
@@ -96,7 +108,7 @@ def kernel_group(name: str) -> str:
         if re.search(pattern, name):
             return group
     low = name.lower()
-    if re.search(r"convolve|fprop|cudnn|conv[23]d", low):
+    if re.search(r"convolve|fprop|cudnn|conv[23]d|depthwise", low):
         return "cuDNN convolution"
     if "gemm" in low:
         return "GEMM"
@@ -328,6 +340,70 @@ def train_profile(args) -> None:
         json.dump(res, fh, indent=1)
 
 
+def waffleiron_profile(args) -> None:
+    """The ``--waffleiron`` mode (see the module docstring)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import WAFFLE_POINTS, waffle_args, waffle_scan
+    from pasco_torch.models.waffleiron import Segmenter
+    from pasco_torch.training import waffleiron_train as wt
+    from scripts_torch.train_waffleiron import synthetic_cloud
+
+    dev = torch.device("cuda", 0)
+    net = Segmenter()
+    net.reset_parameters(torch.Generator().manual_seed(args.seed))
+    net = net.to(dev)
+    if args.train:
+        rng = np.random.RandomState(args.seed)
+        clouds, labels = zip(*[synthetic_cloud(rng) for _ in range(2)])
+        batch = wt.build_point_batch(list(clouds), list(labels), 20000, device=dev)
+        tx = wt.make_waffleiron_optimizer()
+        state = [wt.create_waffle_state(net, tx)]
+
+        def run():
+            state[0], logs = wt.waffleiron_train_step(state[0], batch, net=net, tx=tx)
+            return logs
+
+        name, iters, what = "waffleiron_train", 1, "train step at 2 x 20000 points"
+        grad = torch.enable_grad
+    else:
+        args_ = waffle_args(waffle_scan(WAFFLE_POINTS, args.seed), dev)
+        net.eval()
+
+        def run():
+            return net(*args_)
+
+        name, iters, what = "waffleiron_forward", args.iters, f"forward at {WAFFLE_POINTS} points"
+        grad = torch.no_grad
+    res = {"what": what}
+    with grad():
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls, devs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            devs.append(device_ms(run))
+            walls.append(1e3 * (time.perf_counter() - t0))
+        res.update(wall_ms=statistics.median(walls), device_ms=statistics.median(devs),
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+    trace = os.path.join(args.out, f"{name}_trace.json")
+    prof.export_chrome_trace(trace)
+    res.update(kernel_table(trace, args.top, iters))
+    print(f"WaffleIron {what} on {torch.cuda.get_device_name(dev)}: wall "
+          f"{res['wall_ms']:.3f} ms, device {res['device_ms']:.3f} ms (medians of "
+          f"3), peak {res['peak_gb']:.3f} GB")
+    print_kernels(res, f"profiled WaffleIron {what}")
+    with open(os.path.join(args.out, f"{name}_profile.json"), "w") as fh:
+        json.dump(res, fh, indent=1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -343,18 +419,25 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=40, help="kernels in the leaderboard")
     ap.add_argument("--substrate", default="dense", choices=("dense", "sparse"),
                     help="the network of cfg.model.substrate (forward only)")
+    ap.add_argument("--waffleiron", action="store_true",
+                    help="profile the WaffleIron Segmenter (forward, or a train step)")
     ap.add_argument("--report-only", action="store_true",
                     help="print the leaderboard of the trace saved in --out; no measurement")
     args = ap.parse_args()
     if args.report_only:
-        report(os.path.join(args.out, "train_trace.json" if args.train else
-                            "forward_trace.json"), args.top, 1 if args.train else args.iters)
+        prefix = "waffleiron_" if args.waffleiron else ""
+        report(os.path.join(args.out, f"{prefix}train_trace.json" if args.train else
+                            f"{prefix}forward_trace.json"), args.top,
+               1 if args.train else args.iters)
         return
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward.py: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
+    if args.waffleiron:
+        waffleiron_profile(args)
+        return
     if args.train:
         train_profile(args)
         return

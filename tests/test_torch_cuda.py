@@ -6,8 +6,9 @@ launch each (bit for bit the per-scan launches) and through row 4 once
 per scan, the whole forward (n_infers 1, 3 and, with the KITTI-360 widths,
 2; a batch of two scans against the per-scan forwards) and one whole
 train step with the kernels against the
-plain versions on the CPU, and the data-parallel step of two gloo ranks
-sharing the card against the single-card step.
+plain versions on the CPU, the data-parallel step of two gloo ranks
+sharing the card against the single-card step, and the WaffleIron
+frontend (the forward and one train step) against the CPU.
 
 Marked ``cuda``; each test skips without a CUDA device.  This file imports
 no JAX, so it runs where JAX is absent:
@@ -996,3 +997,56 @@ def test_rulebook_conv_fn_on_card(dev):
     for got, want in ((out, ref), (xa.grad, xb.grad), (wa.grad, wb.grad)):
         err = (got.double() - want.detach()).abs().max().item()
         assert err <= 1e-5 * want.abs().max().item(), err
+
+
+def test_waffleiron_card_matches_cpu(dev):
+    """The WaffleIron Segmenter at a narrow width (depth 4, 32 channels,
+    4000 points) on the card against the CPU from the same weights, in
+    eval and train mode: logits, tokens and the parked BatchNorm
+    statistics within ``1e-4 * max|ref| + 1e-5``
+    (``chip_smoke.waffle_card_check``), no kernel launched."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.waffle_card_check(dev)
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_waffleiron_train_step_card_matches_cpu(dev):
+    """One WaffleIron train step at B = 2 (depth 4, 32 channels) on the card
+    against the same step on the CPU: the loss within ``1e-5`` of it, the
+    updated parameters and the per-scan-averaged running statistics within
+    ``1e-4 * max|ref| + 1e-5``, but ``embed.nbn1.bias``, whose gradient is
+    zero in exact arithmetic (``nbn2`` removes its shift), held to one
+    Adam step."""
+    import chip_smoke as cs
+    from pasco_torch.models.waffleiron import Segmenter
+    from pasco_torch.training import waffleiron_train as wt
+
+    r = torch.Generator().manual_seed(3)
+    clouds, labels = [], []
+    for n in (3000, 2500):
+        xyz = torch.randn(n, 3, generator=r) * 8
+        clouds.append(torch.cat([xyz, torch.rand(n, 2, generator=r)], 1).numpy())
+        labels.append((torch.floor(xyz[:, 0]) % 19).to(torch.int32).numpy())
+    grids = cs.WAFFLE_NARROW["grids_shape"]
+    nets, logs = [], []
+    for device in ("cpu", dev):
+        net = Segmenter(**cs.WAFFLE_NARROW)
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        net = net.to(device)
+        before = {k: v.clone() for k, v in net.state_dict().items()}
+        tx = wt.make_waffleiron_optimizer(warmup_end=0, max_iter=100)
+        batch = wt.build_point_batch(clouds, labels, 3200, grids_shape=grids, fov=20.0,
+                                     device=device)
+        _, out = wt.waffleiron_train_step(wt.create_waffle_state(net, tx), batch, net=net, tx=tx)
+        nets.append(net.state_dict())
+        logs.append(out)
+    assert abs(logs[1]["loss"].item() - logs[0]["loss"].item()) <= 1e-5 * logs[0]["loss"].item()
+    for k, want in nets[0].items():
+        got = nets[1][k].cpu()
+        if k == "embed.nbn1.bias":
+            assert (got - before[k].cpu()).abs().max() <= 1e-3 * (1 + 3e-3 * before[k].abs().max())
+            continue
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item() + 1e-5, (k, err)

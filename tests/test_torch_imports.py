@@ -1,10 +1,11 @@
 """The port imports torch and never JAX, and nothing of the JAX package:
 every ``pasco_torch`` module (the dispatch, evaluation, checkpoint,
 converter, tables, timing, visualization, Robo3D, trainer, scene-loader,
-data-parallel, KITTI-360, label-generation and output-converter modules
-and the sparse substrate's modules named), ``chip_smoke.py`` and the scripts in ``scripts_torch/`` (the
-bench, the four evaluation CLIs, the four training CLIs, the label
-generator and the visualizer named)
+data-parallel, KITTI-360, label-generation and output-converter modules,
+the sparse substrate's modules and the WaffleIron frontend's named),
+``chip_smoke.py`` and the scripts in ``scripts_torch/`` (the bench, the
+four evaluation CLIs, the five training CLIs, the label generator, the
+visualizer and the WaffleIron extractor named)
 import in a fresh interpreter with
 no ``jax``, ``jaxlib``, ``flax`` or ``pasco_tpu`` module in
 ``sys.modules`` afterwards."""
@@ -43,11 +44,13 @@ for name in ("pasco_torch.inference.dispatch", "pasco_torch.inference.evaluate",
              "pasco_torch.models.blocks", "pasco_torch.models.cylinder_feat",
              "pasco_torch.models.encoder", "pasco_torch.models.bottleneck",
              "pasco_torch.models.decoder", "pasco_torch.models.maskpls",
-             "pasco_torch.models.unet"):
+             "pasco_torch.models.unet", "pasco_torch.models.waffleiron",
+             "pasco_torch.training.waffleiron_train", "pasco_torch.convert"):
     assert name in names, name
 for name in ("bench", "eval", "eval_robo3d", "save_outputs_panoptic", "train",
              "bench_train_step", "make_bench_ckpt", "train_kitti360", "eval_kitti360",
-             "gen_instance_labels", "visualize"):
+             "gen_instance_labels", "visualize", "extract_point_features",
+             "train_waffleiron"):
     assert f"scripts_torch/{name}.py" in scripts, name
 """
 
