@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from pasco_torch.core.config import PaSCoConfig
+from pasco_torch.utils import timing
 
 Extent = Tuple[int, int, int]
 
@@ -71,8 +72,11 @@ class AdaptiveForward:
         return pick_box(self.cands, _host(inp.global_min), _host(inp.global_max))
 
     def __call__(self, inp, box: Optional[Extent] = None):
-        return self.net(inp, self.labelweights,
-                        box_extent=box if box is not None else self.box_for(inp))
+        """One scan's forward, the root span ``pasco.dispatch`` of its
+        trace (:mod:`pasco_torch.utils.timing`)."""
+        with timing.span("dispatch"):
+            return self.net(inp, self.labelweights,
+                            box_extent=box if box is not None else self.box_for(inp))
 
     @torch.no_grad()
     def warmup(self, inp) -> None:

@@ -80,6 +80,7 @@ from pasco_torch.ops.dense_ops import (
     extract_sparse_train, maxpool2_mask, point_dropout, upsample2_mask)
 from pasco_torch.ops.down import down2_fused, down_tiles
 from pasco_torch.ops.featurizer import enc_in_1x1, scatter_points
+from pasco_torch.utils import timing
 
 
 def _tiles(fn, mask):
@@ -403,39 +404,44 @@ class DensePaSCoNet(nn.Module):
         ex, ey, ez = box.extent
 
         # ---- point MLP + scatter-max featurizer --------------------------
-        pm = inp.point_mask
-        if live and m.encoder_dropouts[0] > 0.0:
-            pm = point_dropout(pm, m.encoder_dropouts[0], generator)
-        f = self.point_mlp(inp.point_feats, pm)
-        rel = inp.point_coords[..., 1:] - box.minimum[:, None, :]
-        in_box = (pm & (rel >= 0).all(-1) & (rel[..., 0] < ex)
-                  & (rel[..., 1] < ey) & (rel[..., 2] < ez))
-        # One row per (cell, subnet): subnet s lands in lane block s of the
-        # S * f-wide enc_in input (dense_unet.py:1202-1216; the packed form
-        # :1165-1167 has the same order per z-slot).  Every empty (cell,
-        # subnet) row is zero, not only empty cells: a cell that one subnet
-        # occupies and another does not is mask-valid, and enc_in mixes its
-        # lane blocks (dense_unet.py:1178-1189).
-        subnet = inp.point_coords[..., 0].clamp(0, S - 1)
-        x, occ = scatter_points(f, rel, in_box, subnet, S, box.extent, cd)
-        mask1 = occ.any(-1)
+        with timing.span("featurize"):
+            pm = inp.point_mask
+            if live and m.encoder_dropouts[0] > 0.0:
+                pm = point_dropout(pm, m.encoder_dropouts[0], generator)
+            f = self.point_mlp(inp.point_feats, pm)
+            rel = inp.point_coords[..., 1:] - box.minimum[:, None, :]
+            in_box = (pm & (rel >= 0).all(-1) & (rel[..., 0] < ex)
+                      & (rel[..., 1] < ey) & (rel[..., 2] < ez))
+            # One row per (cell, subnet): subnet s lands in lane block s of the
+            # S * f-wide enc_in input (dense_unet.py:1202-1216; the packed form
+            # :1165-1167 has the same order per z-slot).  Every empty (cell,
+            # subnet) row is zero, not only empty cells: a cell that one subnet
+            # occupies and another does not is mask-valid, and enc_in mixes its
+            # lane blocks (dense_unet.py:1178-1189).
+            subnet = inp.point_coords[..., 0].clamp(0, S - 1)
+            x, occ = scatter_points(f, rel, in_box, subnet, S, box.extent, cd)
+            mask1 = occ.any(-1)
+            x = enc_in_1x1(x, mask1, self.enc_in.kernel[0], self.enc_in.bias)
 
         # ---- encoder -------------------------------------------------------
-        x = enc_in_1x1(x, mask1, self.enc_in.kernel[0], self.enc_in.bias)
-        enc = {1: self.enc_s1(x, mask1)}
-        for stride in (2, 4, 8):
-            # The next stage's down and the decoder's skip read the dropped
-            # volume (dense_unet.py:1258-1268).
-            x, msk = getattr(self, f"enc_s{stride}")(*enc[stride // 2])
-            enc[stride] = (apply_dropout(self, f"enc_drop_s{stride}", x, generator, live), msk)
+        with timing.span("encoder"):
+            enc = {1: self.enc_s1(x, mask1)}
+            for stride in (2, 4, 8):
+                # The next stage's down and the decoder's skip read the dropped
+                # volume (dense_unet.py:1258-1268).
+                x, msk = getattr(self, f"enc_s{stride}")(*enc[stride // 2])
+                enc[stride] = (apply_dropout(self, f"enc_drop_s{stride}", x, generator, live),
+                               msk)
 
         # ---- dense bottleneck at stride 8 ([B, X, Y, Z] inside) -----------
-        x8 = enc[8][0].permute(0, 1, 3, 2, 4).float()
-        xb = _remat(m.remat and train, self.bottleneck, x8, cd)
-        xb = apply_dropout(self, "dense3d_drop", xb.to(cd), generator, live).permute(0, 1, 3, 2, 4)
-        mask8 = bbox_mask(box, 8, inp.global_min, inp.global_max)
-        x = torch.where(mask8[..., None], xb, torch.zeros((), dtype=cd,
-                                                          device=xb.device)).contiguous()
+        with timing.span("bottleneck"):
+            x8 = enc[8][0].permute(0, 1, 3, 2, 4).float()
+            xb = _remat(m.remat and train, self.bottleneck, x8, cd)
+            xb = apply_dropout(self, "dense3d_drop", xb.to(cd), generator,
+                               live).permute(0, 1, 3, 2, 4)
+            mask8 = bbox_mask(box, 8, inp.global_min, inp.global_max)
+            x = torch.where(mask8[..., None], xb, torch.zeros((), dtype=cd,
+                                                              device=xb.device)).contiguous()
         parent_keep = mask8
 
         # ---- generative decoder + extraction -------------------------------
@@ -443,72 +449,79 @@ class DensePaSCoNet(nn.Module):
         sem_at: Dict[int, torch.Tensor] = {}
         dense = {}
         for scale in (4, 2, 1):
-            stage = getattr(self, f"dec_s{scale}")
-            x, sem, top_class, top_prob, msk = stage(
-                x, parent_keep, enc[scale][0], enc[scale][1], box,
-                inp.global_min, inp.global_max, generator, live)
-            keep = (top_class != 0).any(-1) & msk
-            dcap = cap.dec_capacity(scale)
-            if train:
-                # Train-time voxel cap (dense_unet.py:1322-1335): the capped
-                # keep feeds the extractions and the next stage.
-                tp = top_prob.float()
-                w = None if labelweights is None else labelweights.get(scale)
-                if w is not None:
-                    tp = tp * w.to(tp.device)[top_class.long()]
-                score = (tp * (top_class != 0)).amax(-1)
-                keep = cap_keep_gumbel(keep, score, dcap, generator)
-            dense[scale] = (x, sem, top_class, keep)
-            # Inference reads scale 1's logits only; training supervises all
-            # three.  The grids' features have no consumer (zeros, as in
-            # the reference).
-            payload = sem.reshape(*sem.shape[:-2], -1)
-            if train:
-                coords, valid, vals = extract_sparse_train(keep, box, scale, dcap, payload)
-            else:
-                coords, valid, vals = extract_sparse(
-                    keep, box, scale, dcap, payload if scale == 1 else None)
-            feats = torch.zeros((B, dcap, x.shape[-1]), dtype=x.dtype, device=x.device)
-            xs[scale] = SparseGrid(coords, feats, valid, scale)
-            sem_at[scale] = (
-                vals.float().reshape(B, dcap, S, m.n_classes) if train or scale == 1
-                else torch.zeros((B, dcap, S, m.n_classes), device=x.device)
-            )
+            with timing.span(f"decoder.s{scale}"):
+                stage = getattr(self, f"dec_s{scale}")
+                x, sem, top_class, top_prob, msk = stage(
+                    x, parent_keep, enc[scale][0], enc[scale][1], box,
+                    inp.global_min, inp.global_max, generator, live)
+                keep = (top_class != 0).any(-1) & msk
+                dcap = cap.dec_capacity(scale)
+                if train:
+                    # Train-time voxel cap (dense_unet.py:1322-1335): the capped
+                    # keep feeds the extractions and the next stage.
+                    tp = top_prob.float()
+                    w = None if labelweights is None else labelweights.get(scale)
+                    if w is not None:
+                        tp = tp * w.to(tp.device)[top_class.long()]
+                    score = (tp * (top_class != 0)).amax(-1)
+                    keep = cap_keep_gumbel(keep, score, dcap, generator)
+                dense[scale] = (x, sem, top_class, keep)
+                # Inference reads scale 1's logits only; training supervises all
+                # three.  The grids' features have no consumer (zeros, as in
+                # the reference).
+                payload = sem.reshape(*sem.shape[:-2], -1)
+                if train:
+                    coords, valid, vals = extract_sparse_train(keep, box, scale, dcap, payload)
+                else:
+                    coords, valid, vals = extract_sparse(
+                        keep, box, scale, dcap, payload if scale == 1 else None)
+                feats = torch.zeros((B, dcap, x.shape[-1]), dtype=x.dtype, device=x.device)
+                xs[scale] = SparseGrid(coords, feats, valid, scale)
+                sem_at[scale] = (
+                    vals.float().reshape(B, dcap, S, m.n_classes) if train or scale == 1
+                    else torch.zeros((B, dcap, S, m.n_classes), device=x.device)
+                )
             parent_keep = keep
 
         # ---- per-subnet refiners + extraction ------------------------------
         panop_grids: Dict[int, SparseGrid] = {}
-        sem_pruned = torch.zeros((B, S, cap.panop_s1, m.n_classes), device=x.device)
+        sem_pruned = None
         for scale in (4, 2, 1) if is_predict_panop else ():
-            xd, sem, top_class, dkeep = dense[scale]
-            refiner = getattr(self, f"voxel_feats_s{scale}")
-            pcap = cap.panop_capacity(scale)
-            sub, sub_sem = [], []
-            for s in range(S):
-                keep_s = ((top_class[..., s] != 0) & dkeep & bbox_mask(
-                    box, scale, inp.subnet_min[:, s], inp.subnet_max[:, s]))
-                refined = _remat(m.remat and train, refiner, xd, keep_s, s,
-                                 _tiles(conv_tiles, keep_s))
-                if train:
-                    coords, valid, vals = extract_sparse_train(
-                        keep_s, box, scale, pcap, refined)
-                    if scale == 1:   # pruned logits for the criterion
-                        sub_sem.append(extract_sparse_train(
-                            keep_s, box, scale, pcap, sem[..., s, :])[2].float())
-                else:
-                    coords, valid, vals = extract_sparse(
-                        keep_s, box, scale, pcap, refined)
-                coords[..., 0] = s
-                sub.append(SparseGrid(coords, vals, valid, scale))
-            panop_grids[scale] = stack_grids(sub, dim=1)      # [B, S, cap, ...]
-            if sub_sem:
-                sem_pruned = torch.stack(sub_sem, 1)
+            with timing.span(f"refiner.s{scale}"):
+                xd, sem, top_class, dkeep = dense[scale]
+                refiner = getattr(self, f"voxel_feats_s{scale}")
+                pcap = cap.panop_capacity(scale)
+                sub, sub_sem = [], []
+                for s in range(S):
+                    keep_s = ((top_class[..., s] != 0) & dkeep & bbox_mask(
+                        box, scale, inp.subnet_min[:, s], inp.subnet_max[:, s]))
+                    refined = _remat(m.remat and train, refiner, xd, keep_s, s,
+                                     _tiles(conv_tiles, keep_s))
+                    if train:
+                        coords, valid, vals = extract_sparse_train(
+                            keep_s, box, scale, pcap, refined)
+                        if scale == 1:   # pruned logits for the criterion
+                            sub_sem.append(extract_sparse_train(
+                                keep_s, box, scale, pcap, sem[..., s, :])[2].float())
+                    else:
+                        coords, valid, vals = extract_sparse(
+                            keep_s, box, scale, pcap, refined)
+                    coords[..., 0] = s
+                    sub.append(SparseGrid(coords, vals, valid, scale))
+                panop_grids[scale] = stack_grids(sub, dim=1)      # [B, S, cap, ...]
+                if sub_sem:
+                    sem_pruned = torch.stack(sub_sem, 1)
 
+        predictor = None
+        if is_predict_panop:
+            with timing.span("transformer"):
+                predictor = self.transformer(panop_grids, box, generator, live)
+        if sem_pruned is None:   # inference reads none
+            sem_pruned = torch.zeros((B, S, cap.panop_s1, m.n_classes), device=x.device)
         return ModelOutput(
             sem_grids=xs,
             sem_logits=sem_at,
             panop_grids=panop_grids,
             sem_logits_pruned=sem_pruned,
-            predictor=(self.transformer(panop_grids, box, generator, live)
-                       if is_predict_panop else None),
+            predictor=predictor,
         )

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from pasco_torch import kernels
+from pasco_torch.utils import timing
 
 BLOCK = 8   # x/y column extent
 
@@ -187,35 +188,36 @@ def block_sparse_conv3(
 ) -> torch.Tensor:
     if not x.is_cuda:
         return block_sparse_conv3_plain(x, weight, mask, block_capacity, bias, compute_dtype)
-    X, Y, Z, c = x.shape
-    d = weight.shape[-1]
-    dev = x.device
-    kernels.require(mask, "mask", torch.bool, (X, Y, Z), dev)
-    if tuple(weight.shape) != (27, c, d):
-        raise ValueError(f"weight shape {tuple(weight.shape)} != (27, {c}, {d})")
-    if d % 16:
-        raise ValueError(f"block_sparse_conv3 needs D % 16 == 0, got {d}")
-    if block_capacity < 1:
-        raise ValueError("block_capacity must be positive")
-    if bias is not None and tuple(bias.shape) != (d,):
-        raise ValueError(f"bias shape {tuple(bias.shape)} != ({d},)")
-    cd = compute_dtype or x.dtype
-    xf = x.to(cd).float()
-    if c % 4:   # the kernel copies 16-byte chunks of a cell's channels
-        xf = F.pad(xf, (0, 4 - c % 4))
-    xf = xf.contiguous()
-    if xf.data_ptr() % 16:
-        xf = xf.clone()
-    img, nb, nkc = split_weight_image(weight.to(dev), cd)
-    bf = None if bias is None else bias.to(dev, torch.float32).contiguous()
-    ids, n_active = active_columns(mask, block_capacity)
-    listed = listed_columns(ids, n_active, X, Y)
-    out = torch.empty((X, Y, Z, d), dtype=torch.float32, device=dev)
-    err = kernels.lib().pasco_column_conv3(
-        xf.data_ptr(), img.data_ptr(), None if bf is None else bf.data_ptr(),
-        mask.data_ptr(), listed.data_ptr(), out.data_ptr(), ids.data_ptr(),
-        n_active.data_ptr(), X, Y, Z, xf.shape[-1], d, nb, nkc, block_capacity,
-        kernels.stream_ptr(x))
-    kernels.check(err, "column_conv3")
+    with timing.span("kernel.column_conv3", events=False):
+        X, Y, Z, c = x.shape
+        d = weight.shape[-1]
+        dev = x.device
+        kernels.require(mask, "mask", torch.bool, (X, Y, Z), dev)
+        if tuple(weight.shape) != (27, c, d):
+            raise ValueError(f"weight shape {tuple(weight.shape)} != (27, {c}, {d})")
+        if d % 16:
+            raise ValueError(f"block_sparse_conv3 needs D % 16 == 0, got {d}")
+        if block_capacity < 1:
+            raise ValueError("block_capacity must be positive")
+        if bias is not None and tuple(bias.shape) != (d,):
+            raise ValueError(f"bias shape {tuple(bias.shape)} != ({d},)")
+        cd = compute_dtype or x.dtype
+        xf = x.to(cd).float()
+        if c % 4:   # the kernel copies 16-byte chunks of a cell's channels
+            xf = F.pad(xf, (0, 4 - c % 4))
+        xf = xf.contiguous()
+        if xf.data_ptr() % 16:
+            xf = xf.clone()
+        img, nb, nkc = split_weight_image(weight.to(dev), cd)
+        bf = None if bias is None else bias.to(dev, torch.float32).contiguous()
+        ids, n_active = active_columns(mask, block_capacity)
+        listed = listed_columns(ids, n_active, X, Y)
+        out = torch.empty((X, Y, Z, d), dtype=torch.float32, device=dev)
+        err = kernels.lib().pasco_column_conv3(
+            xf.data_ptr(), img.data_ptr(), None if bf is None else bf.data_ptr(),
+            mask.data_ptr(), listed.data_ptr(), out.data_ptr(), ids.data_ptr(),
+            n_active.data_ptr(), X, Y, Z, xf.shape[-1], d, nb, nkc, block_capacity,
+            kernels.stream_ptr(x))
+        kernels.check(err, "column_conv3")
     kernels.LAUNCHES["column_conv3"] += 1
     return out.to(x.dtype)

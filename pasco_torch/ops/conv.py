@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from pasco_torch import kernels
 from pasco_torch.ops.dense_ops import conv3_dense
+from pasco_torch.utils import timing
 
 TX, TZ, TY = 4, 4, 16     # tile extents (kernel constants): 256 output cells
 WIDTHS = (64, 128, 256)   # Ci = Co the kernel takes: the model's widths
@@ -101,8 +102,13 @@ def masked_conv3(
     if not x.is_cuda:
         return masked_conv3_plain(x, mask, weight, bias, affine, relu_in,
                                   skip, relu_out)
-    out = _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles)
+    with timing.span("kernel.masked_conv3", events=False):
+        if tiles is None:
+            tiles = conv_tiles(mask)
+        out = _launch(x, mask, weight, bias, affine, relu_in, skip, relu_out, tiles)
     kernels.LAUNCHES["masked_conv3"] += 1
+    # the cells the launch computes: every cell of its active tiles
+    timing.count("masked_conv3.tile_cells", tiles.n_active, TX * TZ * TY)
     return out
 
 
@@ -165,7 +171,8 @@ def conv3_dx(dym: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
     ``conv3_dx``."""
     if not dym.is_cuda:
         return masked_conv3_plain(dym, mask, weight.flip(0).transpose(1, 2))
-    out = _launch(dym, mask, weight, None, None, False, None, False, tiles, flip=True)
+    with timing.span("kernel.conv3_dx", events=False):
+        out = _launch(dym, mask, weight, None, None, False, None, False, tiles, flip=True)
     kernels.LAUNCHES["conv3_dx"] += 1
     return out
 

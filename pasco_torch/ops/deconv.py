@@ -26,6 +26,7 @@ from pasco_torch import kernels
 from pasco_torch.core.sparse import Box
 from pasco_torch.ops.conv import Tiles, _active_list
 from pasco_torch.ops.dense_ops import cell_coords, deconv2_dense, maxpool2_mask
+from pasco_torch.utils import timing
 
 ROWS = 64    # parents per tile (kernel constant)
 WIDTHS = ((128, 64), (256, 128), (256, 256))   # (Ci, Co) the kernel takes
@@ -86,45 +87,46 @@ def up_preamble(
         return up_preamble_plain(parent, parent_keep, child_mask, union_mask,
                                  skip, box, scale, wd, bd, bn_up, bn_resize,
                                  wr, br)
-    if parent.dim() not in (4, 5):
-        raise ValueError(f"up_preamble takes [X2, Z2, Y2, C] or [B, X2, Z2, Y2, C], got "
-                         f"{tuple(parent.shape)}")
-    *lead, X2, Z2, Y2, ci = parent.shape
-    B = lead[0] if lead else 1
-    co = wd.shape[-1]
-    dev = parent.device
-    X, Z, Y = 2 * X2, 2 * Z2, 2 * Y2
-    kernels.require(parent, "parent", torch.bfloat16)
-    kernels.require(parent_keep, "parent_keep", torch.bool, (*lead, X2, Z2, Y2), dev)
-    kernels.require(child_mask, "child_mask", torch.bool, (*lead, X, Z, Y), dev)
-    kernels.require(union_mask, "union_mask", torch.bool, (*lead, X, Z, Y), dev)
-    kernels.require(skip, "skip", torch.bfloat16, (*lead, X, Z, Y, co), dev)
-    if tuple(wd.shape) != (8, ci, co) or tuple(wr.shape) != (co + 3, co):
-        raise ValueError(f"up_preamble: wd {tuple(wd.shape)}, wr {tuple(wr.shape)}")
-    if (ci, co) not in WIDTHS:
-        raise ValueError(f"up_preamble takes (Ci, Co) in {WIDTHS}, got {(ci, co)}")
-    f32 = dict(device=dev, dtype=torch.float32)
-    wd16, wr16 = (w.to(device=dev, dtype=torch.bfloat16).contiguous() for w in (wd, wr))
-    bd32, a1, c1, a2, c2, br32 = (
-        v.to(**f32).contiguous()
-        for v in (bd, *bn_up, *bn_resize, br)
-    )
-    # one corner per scan: [B, 3] (a [3] corner is shared by every scan)
-    box_min = box.minimum.to(device=dev, dtype=torch.int32).expand(B, 3).contiguous()
-    if tiles is None:
-        tiles = up_tiles(union_mask)
-    if tiles.n_tiles != B * -(-(X2 * Z2 * Y2) // ROWS):
-        raise ValueError(f"up_preamble: {tiles.n_tiles} tiles for {B} x {X2 * Z2 * Y2} "
-                         f"parents")
-    out = torch.empty((*lead, X, Z, Y, co), dtype=torch.bfloat16, device=dev)
-    err = kernels.lib().pasco_up_preamble(
-        parent.data_ptr(), parent_keep.data_ptr(), child_mask.data_ptr(),
-        union_mask.data_ptr(), skip.data_ptr(), wd16.data_ptr(),
-        bd32.data_ptr(), a1.data_ptr(), c1.data_ptr(), a2.data_ptr(),
-        c2.data_ptr(), wr16.data_ptr(), br32.data_ptr(), box_min.data_ptr(),
-        out.data_ptr(), tiles.ids.data_ptr(), tiles.n_active.data_ptr(),
-        B, X2, Z2, Y2, ci, co, scale, tiles.n_tiles, kernels.stream_ptr(parent),
-    )
-    kernels.check(err, "up_preamble")
+    with timing.span("kernel.up_preamble", events=False):
+        if parent.dim() not in (4, 5):
+            raise ValueError(f"up_preamble takes [X2, Z2, Y2, C] or [B, X2, Z2, Y2, C], got "
+                             f"{tuple(parent.shape)}")
+        *lead, X2, Z2, Y2, ci = parent.shape
+        B = lead[0] if lead else 1
+        co = wd.shape[-1]
+        dev = parent.device
+        X, Z, Y = 2 * X2, 2 * Z2, 2 * Y2
+        kernels.require(parent, "parent", torch.bfloat16)
+        kernels.require(parent_keep, "parent_keep", torch.bool, (*lead, X2, Z2, Y2), dev)
+        kernels.require(child_mask, "child_mask", torch.bool, (*lead, X, Z, Y), dev)
+        kernels.require(union_mask, "union_mask", torch.bool, (*lead, X, Z, Y), dev)
+        kernels.require(skip, "skip", torch.bfloat16, (*lead, X, Z, Y, co), dev)
+        if tuple(wd.shape) != (8, ci, co) or tuple(wr.shape) != (co + 3, co):
+            raise ValueError(f"up_preamble: wd {tuple(wd.shape)}, wr {tuple(wr.shape)}")
+        if (ci, co) not in WIDTHS:
+            raise ValueError(f"up_preamble takes (Ci, Co) in {WIDTHS}, got {(ci, co)}")
+        f32 = dict(device=dev, dtype=torch.float32)
+        wd16, wr16 = (w.to(device=dev, dtype=torch.bfloat16).contiguous() for w in (wd, wr))
+        bd32, a1, c1, a2, c2, br32 = (
+            v.to(**f32).contiguous()
+            for v in (bd, *bn_up, *bn_resize, br)
+        )
+        # one corner per scan: [B, 3] (a [3] corner is shared by every scan)
+        box_min = box.minimum.to(device=dev, dtype=torch.int32).expand(B, 3).contiguous()
+        if tiles is None:
+            tiles = up_tiles(union_mask)
+        if tiles.n_tiles != B * -(-(X2 * Z2 * Y2) // ROWS):
+            raise ValueError(f"up_preamble: {tiles.n_tiles} tiles for {B} x {X2 * Z2 * Y2} "
+                             f"parents")
+        out = torch.empty((*lead, X, Z, Y, co), dtype=torch.bfloat16, device=dev)
+        err = kernels.lib().pasco_up_preamble(
+            parent.data_ptr(), parent_keep.data_ptr(), child_mask.data_ptr(),
+            union_mask.data_ptr(), skip.data_ptr(), wd16.data_ptr(),
+            bd32.data_ptr(), a1.data_ptr(), c1.data_ptr(), a2.data_ptr(),
+            c2.data_ptr(), wr16.data_ptr(), br32.data_ptr(), box_min.data_ptr(),
+            out.data_ptr(), tiles.ids.data_ptr(), tiles.n_active.data_ptr(),
+            B, X2, Z2, Y2, ci, co, scale, tiles.n_tiles, kernels.stream_ptr(parent),
+        )
+        kernels.check(err, "up_preamble")
     kernels.LAUNCHES["up_preamble"] += 1
     return out

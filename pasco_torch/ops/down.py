@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from pasco_torch import kernels
 from pasco_torch.ops.conv import Tiles
 from pasco_torch.ops.dense_ops import down2_dense
+from pasco_torch.utils import timing
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -64,33 +65,35 @@ def down2_fused(
 ) -> torch.Tensor:
     if not x.is_cuda:
         return down2_fused_plain(x, mask_in, mask_out, weight, bias, bn1, bn2)
-    if x.dim() not in (4, 5):
-        raise ValueError(f"down2_fused takes [X, Z, Y, C] or [B, X, Z, Y, C], got {tuple(x.shape)}")
-    *lead, X, Z, Y, ci = x.shape
-    B = lead[0] if lead else 1
-    co = weight.shape[-1]
-    dev = x.device
-    kernels.require(x, "x", torch.bfloat16)
-    kernels.require(mask_in, "mask_in", torch.bool, (*lead, X, Z, Y), dev)
-    kernels.require(mask_out, "mask_out", torch.bool, (*lead, X // 2, Z // 2, Y // 2), dev)
-    if tuple(weight.shape) != (8, ci, co) or X % 2 or Z % 2 or Y % 2:
-        raise ValueError(f"down2_fused: weight {tuple(weight.shape)}, x {tuple(x.shape)}")
-    if (ci, co) not in WIDTHS:
-        raise ValueError(f"down2_fused takes (Ci, Co) in {WIDTHS}, got {(ci, co)}")
-    f32 = dict(device=dev, dtype=torch.float32)
-    w = kernels.cast_once(weight, dev, torch.bfloat16)
-    # no copy for vectors already f32 on the card (the BN affines are)
-    vecs = [v.to(**f32).contiguous() for v in (bias, *bn1, *bn2)]
-    if tiles is None:
-        tiles = down_tiles(mask_out)
-    if tiles.n_tiles != mask_out.numel():
-        raise ValueError(f"down2_fused: {tiles.n_tiles} cells listed for {mask_out.numel()}")
-    out = torch.empty((*lead, X // 2, Z // 2, Y // 2, co), dtype=torch.bfloat16, device=dev)
-    err = kernels.lib().pasco_down2_fused(
-        x.data_ptr(), mask_in.data_ptr(), mask_out.data_ptr(), w.data_ptr(),
-        *(v.data_ptr() for v in vecs), out.data_ptr(), tiles.ids.data_ptr(),
-        tiles.n_active.data_ptr(), B, X, Z, Y, ci, co, kernels.stream_ptr(x),
-    )
-    kernels.check(err, "down2_fused")
+    with timing.span("kernel.down2_fused", events=False):
+        if x.dim() not in (4, 5):
+            raise ValueError(f"down2_fused takes [X, Z, Y, C] or [B, X, Z, Y, C], got "
+                             f"{tuple(x.shape)}")
+        *lead, X, Z, Y, ci = x.shape
+        B = lead[0] if lead else 1
+        co = weight.shape[-1]
+        dev = x.device
+        kernels.require(x, "x", torch.bfloat16)
+        kernels.require(mask_in, "mask_in", torch.bool, (*lead, X, Z, Y), dev)
+        kernels.require(mask_out, "mask_out", torch.bool, (*lead, X // 2, Z // 2, Y // 2), dev)
+        if tuple(weight.shape) != (8, ci, co) or X % 2 or Z % 2 or Y % 2:
+            raise ValueError(f"down2_fused: weight {tuple(weight.shape)}, x {tuple(x.shape)}")
+        if (ci, co) not in WIDTHS:
+            raise ValueError(f"down2_fused takes (Ci, Co) in {WIDTHS}, got {(ci, co)}")
+        f32 = dict(device=dev, dtype=torch.float32)
+        w = kernels.cast_once(weight, dev, torch.bfloat16)
+        # no copy for vectors already f32 on the card (the BN affines are)
+        vecs = [v.to(**f32).contiguous() for v in (bias, *bn1, *bn2)]
+        if tiles is None:
+            tiles = down_tiles(mask_out)
+        if tiles.n_tiles != mask_out.numel():
+            raise ValueError(f"down2_fused: {tiles.n_tiles} cells listed for {mask_out.numel()}")
+        out = torch.empty((*lead, X // 2, Z // 2, Y // 2, co), dtype=torch.bfloat16, device=dev)
+        err = kernels.lib().pasco_down2_fused(
+            x.data_ptr(), mask_in.data_ptr(), mask_out.data_ptr(), w.data_ptr(),
+            *(v.data_ptr() for v in vecs), out.data_ptr(), tiles.ids.data_ptr(),
+            tiles.n_active.data_ptr(), B, X, Z, Y, ci, co, kernels.stream_ptr(x),
+        )
+        kernels.check(err, "down2_fused")
     kernels.LAUNCHES["down2_fused"] += 1
     return out

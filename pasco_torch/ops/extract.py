@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from pasco_torch import kernels
+from pasco_torch.utils import timing
 
 
 def compact_src(keep_f: torch.Tensor, capacity: int):
@@ -100,26 +101,27 @@ def stream_extract(
 
 def _launch(keep, capacity, payload):
     """One launch of ``csrc/stream_extract.cu`` on one scan (counted)."""
-    dev = keep.device
-    kernels.require(keep, "keep", torch.bool)
-    n = keep.numel()
-    if n >= 1 << 30:
-        raise ValueError(f"stream_extract takes fewer than 2^30 cells, got {n}")
-    e = 0
-    if payload is not None:
-        e = payload.shape[-1]
-        kernels.require(payload, "payload", torch.bfloat16, (*keep.shape, e), dev)
-    stream = kernels.stream_ptr(keep)
-    key = (dev.index, stream)
-    ws = _WORKSPACES.get(key) or _WORKSPACES.setdefault(key, _Workspace())
-    buf, tiles, epoch = ws.take(-(-n // TILE), dev)
-    vals = torch.empty((capacity, e), dtype=torch.bfloat16, device=dev)
-    src = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    valid = torch.empty((capacity,), dtype=torch.bool, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    err = kernels.lib().pasco_stream_extract(
-        keep.data_ptr(), kernels.ptr(payload), n, e, capacity, buf.data_ptr(), tiles, epoch,
-        vals.data_ptr(), src.data_ptr(), valid.data_ptr(), total.data_ptr(), stream)
-    kernels.check(err, "stream_extract")
+    with timing.span("kernel.stream_extract", events=False):
+        dev = keep.device
+        kernels.require(keep, "keep", torch.bool)
+        n = keep.numel()
+        if n >= 1 << 30:
+            raise ValueError(f"stream_extract takes fewer than 2^30 cells, got {n}")
+        e = 0
+        if payload is not None:
+            e = payload.shape[-1]
+            kernels.require(payload, "payload", torch.bfloat16, (*keep.shape, e), dev)
+        stream = kernels.stream_ptr(keep)
+        key = (dev.index, stream)
+        ws = _WORKSPACES.get(key) or _WORKSPACES.setdefault(key, _Workspace())
+        buf, tiles, epoch = ws.take(-(-n // TILE), dev)
+        vals = torch.empty((capacity, e), dtype=torch.bfloat16, device=dev)
+        src = torch.empty((capacity,), dtype=torch.int32, device=dev)
+        valid = torch.empty((capacity,), dtype=torch.bool, device=dev)
+        total = torch.empty((), dtype=torch.int32, device=dev)
+        err = kernels.lib().pasco_stream_extract(
+            keep.data_ptr(), kernels.ptr(payload), n, e, capacity, buf.data_ptr(), tiles, epoch,
+            vals.data_ptr(), src.data_ptr(), valid.data_ptr(), total.data_ptr(), stream)
+        kernels.check(err, "stream_extract")
     kernels.LAUNCHES["stream_extract"] += 1
     return vals, src, valid, total

@@ -34,6 +34,7 @@ import torch
 
 from pasco_torch import kernels
 from pasco_torch.ops.dense_ops import scatter_max_rows
+from pasco_torch.utils import timing
 
 NEG = -1e30   # finite featurizer sentinel (pasco_tpu/models/dense_unet.py:1137-1145)
 Extent = Tuple[int, int, int]
@@ -115,36 +116,38 @@ def featurizer_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     if not f.is_cuda:
         return featurizer_fused_plain(f, rel, in_box, weight, bias, extent, compute_dtype)
-    P, Fd = f.shape
-    C = weight.shape[-1]
-    dev = f.device
-    ex, ey, ez = extent
-    n_cells = ex * ey * ez
-    if compute_dtype not in _DTYPES or f.dtype not in _DTYPES:
-        raise ValueError(f"featurizer_fused takes f32 or bf16 features and computes in f32 "
-                         f"or bf16, not {f.dtype} and {compute_dtype}")
-    kernels.require(in_box, "in_box", torch.bool, (P,), dev)
-    if tuple(rel.shape) != (P, 3) or tuple(weight.shape) != (Fd, C) or tuple(bias.shape) != (C,):
-        raise ValueError(f"shapes rel {tuple(rel.shape)}, weight {tuple(weight.shape)}, "
-                         f"bias {tuple(bias.shape)} do not fit f {tuple(f.shape)}")
-    if Fd not in (8, 16, 32, 64, 128) or C not in (32, 64, 128, 256):
-        raise ValueError(f"featurizer_fused takes F in 8, 16, .., 128 and C in 32, 64, 128, "
-                         f"256, got F={Fd}, C={C}")
-    if not 0 < n_cells < 1 << 31:
-        raise ValueError(f"featurizer_fused takes 1 to 2^31 - 1 cells, got {n_cells}")
-    ks, order = sort_points(rel, in_box, extent)
-    f = f.contiguous()
-    if f.data_ptr() % 16:                  # the kernel reads rows with 16-byte loads
-        f = f.clone()
-    # rounded to compute_dtype by the kernel as it stages them
-    w = weight.to(device=dev, dtype=torch.float32).contiguous()
-    b = bias.to(device=dev, dtype=torch.float32).contiguous()
-    x = torch.empty((ex, ez, ey, C), dtype=compute_dtype, device=dev)
-    occ = torch.empty((ex, ez, ey), dtype=torch.bool, device=dev)
-    err = kernels.lib().pasco_featurizer(
-        f.data_ptr(), order.data_ptr(), ks.data_ptr(), w.data_ptr(), b.data_ptr(),
-        x.data_ptr(), occ.data_ptr(), P, Fd, C, n_cells, _DTYPES[f.dtype],
-        _DTYPES[compute_dtype], kernels.stream_ptr(f))
-    kernels.check(err, "featurizer")
+    with timing.span("kernel.featurizer", events=False):
+        P, Fd = f.shape
+        C = weight.shape[-1]
+        dev = f.device
+        ex, ey, ez = extent
+        n_cells = ex * ey * ez
+        if compute_dtype not in _DTYPES or f.dtype not in _DTYPES:
+            raise ValueError(f"featurizer_fused takes f32 or bf16 features and computes in f32 "
+                             f"or bf16, not {f.dtype} and {compute_dtype}")
+        kernels.require(in_box, "in_box", torch.bool, (P,), dev)
+        if (tuple(rel.shape) != (P, 3) or tuple(weight.shape) != (Fd, C)
+                or tuple(bias.shape) != (C,)):
+            raise ValueError(f"shapes rel {tuple(rel.shape)}, weight {tuple(weight.shape)}, "
+                             f"bias {tuple(bias.shape)} do not fit f {tuple(f.shape)}")
+        if Fd not in (8, 16, 32, 64, 128) or C not in (32, 64, 128, 256):
+            raise ValueError(f"featurizer_fused takes F in 8, 16, .., 128 and C in 32, 64, 128, "
+                             f"256, got F={Fd}, C={C}")
+        if not 0 < n_cells < 1 << 31:
+            raise ValueError(f"featurizer_fused takes 1 to 2^31 - 1 cells, got {n_cells}")
+        ks, order = sort_points(rel, in_box, extent)
+        f = f.contiguous()
+        if f.data_ptr() % 16:                  # the kernel reads rows with 16-byte loads
+            f = f.clone()
+        # rounded to compute_dtype by the kernel as it stages them
+        w = weight.to(device=dev, dtype=torch.float32).contiguous()
+        b = bias.to(device=dev, dtype=torch.float32).contiguous()
+        x = torch.empty((ex, ez, ey, C), dtype=compute_dtype, device=dev)
+        occ = torch.empty((ex, ez, ey), dtype=torch.bool, device=dev)
+        err = kernels.lib().pasco_featurizer(
+            f.data_ptr(), order.data_ptr(), ks.data_ptr(), w.data_ptr(), b.data_ptr(),
+            x.data_ptr(), occ.data_ptr(), P, Fd, C, n_cells, _DTYPES[f.dtype],
+            _DTYPES[compute_dtype], kernels.stream_ptr(f))
+        kernels.check(err, "featurizer")
     kernels.LAUNCHES["featurizer"] += 1
     return x, occ

@@ -1,1 +1,2 @@
-"""Host utilities of the port: timing and profiling, and the PLY export."""
+"""Host utilities of the port: tracing (spans and counters) and the seed
+helper, and the PLY export."""

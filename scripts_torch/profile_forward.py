@@ -25,7 +25,17 @@ default the configured 352 box).  Prints
    3): per forward, the summed kernel time, the device span from the first
    kernel's start to the last one's end, kernel time by group (the four
    hand-written kernels, cuDNN convolutions, GEMMs, other torch kernels)
-   and the ``--top`` kernels (default 40).
+   and the ``--top`` kernels (default 40);
+   the program's tracing (``pasco_torch/utils/timing.py``) is on for
+   these forwards, which run through ``AdaptiveForward``, so the trace
+   holds the ``pasco.*`` stage and kernel spans, and the table of spans
+   gives, per forward, ``pasco.dispatch``, each stage and ``(dispatch)``
+   (the dispatch outside its stages): host ms (the recorder's, under the
+   profiler), ``driver_ms`` (in CUDA runtime calls inside the span), own
+   host ms (host less ``driver_ms``), launches and syncs (runtime calls that enqueue
+   device work, and that wait for it), starved ms (device idle time that
+   began inside the span) and device ms (the span's CUDA events); then the
+   program's counters per forward;
 
 4. per decoder scale, the kept cells (``top_class != 0`` for some subnet,
    before the cap) against the stage's valid cells, and the extracted
@@ -205,6 +215,133 @@ def kernel_table(trace_path: str, top: int = 40, iters: int = 1,
                    for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])},
         "top": [{"name": k[:120], "ms": v[0], "launches": v[1] / iters} for k, v in ranked],
     }
+
+
+# CUDA runtime API calls (``cuda*``, ``cu*``) on the host timeline of a profile
+RUNTIME = re.compile(r"cu(da)?[A-Z]")
+SYNCS = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+         "cudaMemcpy", "cuStreamSynchronize", "cuCtxSynchronize", "cuEventSynchronize"}
+
+
+def is_launch(name: str) -> bool:
+    """A runtime call that enqueues device work: a kernel launch, an async
+    copy or memset (not ``cudaEventRecord``)."""
+    return name.startswith(("cudaLaunch", "cuLaunch")) or name in (
+        "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profile_events(prof):
+    """(host events ``[(start_us, end_us, name)]``: the program's
+    ``pasco.*`` spans and the CUDA runtime calls; device intervals
+    ``[(start_us, end_us)]``: device work, without the spans' device-side
+    annotations) of a finished ``torch.profiler`` profile."""
+    from torch.autograd import DeviceType
+
+    from pasco_torch.utils.timing import PREFIX
+
+    host, dev = [], []
+    for e in prof.events():
+        s, t = e.time_range.start, e.time_range.end
+        if e.device_type == DeviceType.CUDA:
+            if not (getattr(e, "is_user_annotation", False) or e.name.startswith(PREFIX)):
+                dev.append((s, t))
+        elif e.name.startswith(PREFIX) or RUNTIME.match(e.name):
+            host.append((s, t, e.name))
+    return sorted(host), sorted(dev)
+
+
+def idle_gaps(device):
+    """Gaps ``[(start_us, end_us)]`` between the union of device intervals."""
+    gaps, end = [], None
+    for s, e in sorted(device):
+        if end is not None and s > end:
+            gaps.append((end, s))
+        end = e if end is None else max(end, e)
+    return gaps
+
+
+def dispatch_split(host, device) -> list:
+    """Each ``pasco.dispatch`` span of a profile (``profile_events``'s
+    lists) reduced to ``launches`` and ``syncs`` (runtime calls inside it,
+    as :func:`is_launch` and ``SYNCS`` class them),
+    ``driver_ms`` (the summed time of every runtime call inside it),
+    ``starved_ms`` (device idle time whose gap begins inside it, so while
+    the host is in the program) and the same numbers by ``stages``: the
+    dispatch's outermost child spans, calls outside them under
+    ``(dispatch)``."""
+    from pasco_torch.utils.timing import PREFIX
+
+    spans = [h for h in host if h[2].startswith(PREFIX)]
+    calls = [h for h in host if not h[2].startswith(PREFIX)]
+    gaps = idle_gaps(device)
+    out = []
+    for d0, d1, name in spans:
+        if name != PREFIX + "dispatch":
+            continue
+        stages = []   # outermost first where two spans start together
+        for s, e, n in sorted(spans, key=lambda h: (h[0], -h[1])):
+            if d0 <= s and e <= d1 and (s, e, n) != (d0, d1, name) \
+                    and not (stages and s < stages[-1][1]):
+                stages.append((s, e, n))
+
+        def stage_of(t):
+            for s, e, n in stages:
+                if s <= t < e:
+                    return n
+            return "(dispatch)"
+
+        res = dict(launches=0, syncs=0, driver_ms=0.0, starved_ms=0.0, stages={})
+
+        def add(t, **kv):
+            st = res["stages"].setdefault(stage_of(t), dict(
+                launches=0, syncs=0, driver_ms=0.0, starved_ms=0.0))
+            for k, v in kv.items():
+                res[k] += v
+                st[k] += v
+
+        for s, e, n in calls:
+            if d0 <= s < d1:
+                add(s, launches=int(is_launch(n)), syncs=int(n in SYNCS),
+                    driver_ms=(e - s) / 1e3)
+        for g0, g1 in gaps:
+            if d0 <= g0 < d1:
+                add(g0, starved_ms=(g1 - g0) / 1e3)
+        out.append(res)
+    return out
+
+
+def span_table(drained: dict, split: list) -> dict:
+    """Per span name, the mean over the profiled forwards: host ms and
+    device ms from the program's recorder (``timing.drain()``), and
+    ``driver_ms``, launches, syncs and starved ms from
+    :func:`dispatch_split` (the dispatch and its stages); own host ms is
+    host ms less ``driver_ms``."""
+    n = max(1, len(split))
+    table = defaultdict(lambda: defaultdict(float))
+    for r in drained["rows"]:
+        if r["name"].startswith("pasco.kernel."):
+            continue
+        t = table[r["name"]]
+        t["host_ms"] += r["host_ms"] / n
+        if r["parent"] is None:
+            table["(dispatch)"]["host_ms"] += r["self_ms"] / n
+        if r["device_ms"] is not None:
+            t["device_ms"] += r["device_ms"] / n
+    for d in split:
+        for name, vals in [("pasco.dispatch", d), *d["stages"].items()]:
+            for k in ("driver_ms", "launches", "syncs", "starved_ms"):
+                table[name][k] += vals[k] / n
+    for t in table.values():
+        t["own_ms"] = t["host_ms"] - t["driver_ms"]
+    return {k: dict(v) for k, v in table.items()}
+
+
+def print_spans(table: dict, n: int) -> None:
+    cols = ("host_ms", "driver_ms", "own_ms", "launches", "syncs", "starved_ms", "device_ms")
+    print(f"program spans, mean of {n} profiled forwards (host times under the profiler):")
+    print(f"  {'span':22s}" + "".join(f"{c:>12s}" for c in cols))
+    for name, t in table.items():
+        print(f"  {name:22s}" + "".join(f"{t.get(c, 0.0):12.3f}" for c in cols))
 
 
 def print_kernels(res: dict, what: str = "profiled forward") -> None:
@@ -445,7 +582,9 @@ def main() -> None:
 
     from chip_smoke import make_scans
     from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.inference.dispatch import AdaptiveForward
     from pasco_torch.models.unet import build_net
+    from pasco_torch.utils import timing
 
     dev = torch.device("cuda", 0)
     cfg = PaSCoConfig()
@@ -465,8 +604,10 @@ def main() -> None:
         data = np.load(trained)
         net.load_state_dict(flax_to_torch({k: data[k] for k in data.files}), strict=True)
 
+    fwd = AdaptiveForward(net)
+
     def forward():
-        return net(inp, box_extent=box)
+        return fwd(inp, box)
 
     res = {"box": list(box), "weights": trained or "seeded random init"}
     with torch.no_grad():
@@ -489,12 +630,17 @@ def main() -> None:
         else:
             res["kept"] = kept_cells(net, forward)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            timing.tracing(True)
             for _ in range(args.iters):
                 forward()
+            timing.tracing(False)
             torch.cuda.synchronize()
     trace = os.path.join(args.out, "forward_trace.json")
     prof.export_chrome_trace(trace)
     res.update(kernel_table(trace, args.top, args.iters))
+    drained = timing.drain()
+    res["spans"] = span_table(drained, dispatch_split(*profile_events(prof)))
+    res["counters"] = drained["counters"]
 
     print(f"forward at box {tuple(box)}: wall {res['wall_ms']:.3f} ms, device "
           f"{res['device_ms']:.3f} ms, peak {res['peak_gb']:.3f} GB")
@@ -502,6 +648,8 @@ def main() -> None:
     for k, v in res["modules_ms"].items():
         print(f"  {k:24s} {v:9.3f}")
     print_kernels(res)
+    print_spans(res["spans"], args.iters)
+    print(f"program counters per forward: {res['counters']}")
     print(f"kept cells per decoder scale ({res['weights']}):")
     for k, v in res["kept"].items():
         if sparse:

@@ -3,7 +3,8 @@ ragged shapes (tile edges in x, z and y, both conv tile geometries) and
 every channel width of the flagship path, the differentiable training
 conv's gradients likewise, a batch of scans through rows 1-3 in one
 launch each (bit for bit the per-scan launches) and through row 4 once
-per scan, the whole forward (n_infers 1, 3 and, with the KITTI-360 widths,
+per scan, the traced forward (the program's spans and counters on: the
+same outputs, device ms per stage), the whole forward (n_infers 1, 3 and, with the KITTI-360 widths,
 2; a batch of two scans against the per-scan forwards) and one whole
 train step with the kernels against the
 plain versions on the CPU, the data-parallel step of two gloo ranks
@@ -723,6 +724,69 @@ def test_batched_forward_on_card(dev):
     with torch.no_grad():
         assert bench.host_syncs(lambda: bench.reduced(net(stack_inputs(
             [inp for _, inp in scans])))) == []
+
+
+def test_traced_forward_on_card(dev):
+    """The flagship S=3 forward (seeded random init) of bench.py's first
+    scan through ``AdaptiveForward`` with the program's tracing on: the
+    outputs are bit for bit those with it off; the stage spans carry device
+    ms from CUDA events and their sum is within 3% of the dispatch's; the
+    kernel spans carry none and sit in the stages; the root row's launches
+    equal the kernel spans by name; ``masked_conv3.tile_cells`` counts 256
+    cells a listed tile."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.inference.dispatch import AdaptiveForward
+    from pasco_torch.models.unet import build_net
+    from pasco_torch.utils import timing
+
+    cfg = PaSCoConfig()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=3))
+    col, inp = cs.make_scans(cfg, 1, dev)[0]
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    fwd = AdaptiveForward(net)
+    box = cs.box_of(cfg, col)
+
+    def flat(v):
+        if isinstance(v, torch.Tensor):
+            return [v]
+        if isinstance(v, dict):
+            v = list(v.values())
+        elif hasattr(v, "__dataclass_fields__"):
+            v = [getattr(v, k) for k in v.__dataclass_fields__]
+        return [t for x in v for t in flat(x)] if isinstance(v, (list, tuple)) else []
+
+    timing.drain()
+    with torch.no_grad():
+        fwd(inp, box)
+        off = flat(fwd(inp, box))
+        timing.tracing(True)
+        try:
+            on = flat(fwd(inp, box))
+        finally:
+            timing.tracing(False)
+    got = timing.drain()
+    assert len(off) == len(on) > 20 and all(torch.equal(a, b) for a, b in zip(off, on))
+    rows = got["rows"]
+    root = rows[0]
+    stages = [r for r in rows if r["parent"] == root["id"]]
+    ids = {r["id"] for r in stages}
+    kernel_rows = [r for r in rows if r["name"].startswith("pasco.kernel.")]
+    assert len(stages) == 10 and all(r["device_ms"] > 0 for r in [root] + stages)
+    assert abs(sum(r["device_ms"] for r in stages) - root["device_ms"]) \
+        <= 0.03 * root["device_ms"]
+    assert kernel_rows and all(r["device_ms"] is None and r["parent"] in ids
+                               for r in kernel_rows)
+    by_name = {}
+    for r in kernel_rows:
+        key = r["name"][len("pasco.kernel."):]
+        by_name[key] = by_name.get(key, 0) + 1
+    assert root["launches"] == by_name and by_name["masked_conv3"] == 60
+    cells = got["counters"][0]["masked_conv3.tile_cells"]
+    assert cells > 0 and cells % 256 == 0
 
 
 def test_wrappers_raise_on_wrong_input(dev):

@@ -18,7 +18,7 @@ voxels at the centre of the 256x256x32 label volume, raw velodyne points:
 * ``scripts_torch/eval_robo3d.py`` on a corrupted dump;
 * ``scripts_torch/bench.py``'s measuring function, both protocols, on two
   tiny scans (control flow only: no card here);
-* ``pasco_torch/utils/timing.py`` on the CPU.
+* ``pasco_torch/utils/timing.py``'s recorder and seed helper on the CPU.
 """
 
 import dataclasses
@@ -273,24 +273,30 @@ def test_bench_measure_on_cpu(per_scan):
     assert '"metric": "inference_scans_per_sec_n3"' in line and '"vs_baseline"' in line
 
 
-def test_timing_utils(tmp_path):
-    """``pasco_torch/utils/timing.py`` on the CPU: the timer records each
-    region and skips the first in its mean, the trace lands in the
-    directory, no card reports no memory, and the seed fixes both
-    generators."""
+def test_timing_utils():
+    """``pasco_torch/utils/timing.py`` on the CPU: the recorder is off by
+    default and records nothing then; on, a span and a counter land in
+    ``drain()``'s rows and counters, and the next drain starts afresh; the
+    seed fixes both generators."""
     from pasco_torch.utils import timing
 
-    t = timing.Timer()
-    for s in (1.0, 2.0, 4.0):
-        t.record("fwd", s)
-    with t.time("block", result=[torch.ones(3)]):
-        torch.ones(10).sum()
-    assert t.mean("fwd") == 3.0 and t.mean("fwd", skip_first=False) == 7.0 / 3
-    assert set(t.summary()) == {"fwd", "block"} and t.times["block"][0] >= 0
-    with timing.profile_trace(str(tmp_path / "trace")):
-        torch.ones(100).cumsum(0)
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
-    assert timing.device_memory_stats() == {}
+    with timing.span("dispatch"):
+        timing.count("cells", 3)
+    assert timing.drain() == {"rows": [], "counters": {}}
+    timing.tracing(True)
+    try:
+        with timing.span("dispatch"):
+            with timing.span("encoder"):
+                torch.ones(10).sum()
+            timing.count("cells", torch.tensor(3), 2)
+    finally:
+        timing.tracing(False)
+    got = timing.drain()
+    assert [(r["name"], r["parent"], r["forward"]) for r in got["rows"]] == [
+        ("pasco.dispatch", None, 0), ("pasco.encoder", 0, 0)]
+    assert got["rows"][0]["host_ms"] >= got["rows"][1]["host_ms"] >= 0
+    assert got["counters"] == {0: {"cells": 6}}
+    assert timing.drain() == {"rows": [], "counters": {}}
     g1 = timing.set_random_seed(5)
     a = (np.random.rand(), torch.rand(1).item(), torch.rand(1, generator=g1).item())
     g2 = timing.set_random_seed(5)
