@@ -27,6 +27,9 @@
    the column-sparse conv (row 7) runs through its own entry point on the
    scan's s1 occupancy against cuDNN in f32, within ``1e-5 * max|ref|``, a
    bound that one or two TF32 products break (:func:`column_conv_phase`);
+   the dense bottleneck (row 9) at the stride-8 grids of the 352, 320 and
+   288 boxes, within ``5e-3 * max|ref| + 1e-3``, its library time that of
+   the eleven ``F.conv3d`` calls it replaced (:func:`spc_dense3d_phase`);
 4. drives the flagship forward (``PaSCoConfig()``, n_infers=1, full
    widths, seeded random init) on 3 synthetic scans after one warm-up,
    checks finite outputs of the expected shapes, kept voxels at every
@@ -758,6 +761,107 @@ def kernel_phases(cfg, inp, gen, own=True, timed=True):
     return rows
 
 
+def spc_module(ch, seed):
+    """An eval-mode ``SPCDense3D(ch)`` on the CPU with seeded
+    variance-scaling kernels and, in every BN, random running statistics,
+    scale and bias (a fresh BN is the identity, which would hide a wrong
+    affine)."""
+    from pasco_torch.models.bottleneck import SPCDense3D
+
+    g = torch.Generator().manual_seed(seed)
+    m = SPCDense3D(ch).eval()
+    with torch.no_grad():
+        for name, k in m.KERNELS.items():
+            conv = getattr(m, f"{name}_conv")
+            fan_in = k[0] * k[1] * k[2] * ch
+            conv.kernel.copy_(torch.randn(conv.kernel.shape, generator=g) * (2.0 / fan_in) ** 0.5)
+            bn = getattr(m, f"{name}_bn")
+            bn.scale.copy_(torch.rand(ch, generator=g) + 0.5)
+            bn.bias.copy_(torch.randn(ch, generator=g) * 0.1)
+            bn.mean.copy_(torch.randn(ch, generator=g) * 0.1)
+            bn.var.copy_(torch.rand(ch, generator=g) + 0.5)
+    return m
+
+
+def spc_weights(m):
+    """The kernels of an ``SPCDense3D`` by conv name."""
+    return {n: getattr(m, f"{n}_conv").kernel.detach() for n in m.KERNELS}
+
+
+def spc_dense3d_flop(X, Y, Z, ch):
+    """Operations of ``SPCDense3D``'s convs on one ``[X, Y, Z]`` grid with
+    the taps that reach only the z padding left out (what the inputs need)."""
+    from pasco_torch.models.bottleneck import SPCDense3D
+
+    taps = sum(kx * ky * sum(min(kz // 2, Z - 1 - z) + min(kz // 2, z) + 1 for z in range(Z))
+               for kx, ky, kz in SPCDense3D.KERNELS.values())
+    return 2 * X * Y * taps * ch * ch
+
+
+SPC_SIDES = (44, 40, 36)   # the stride-8 grids of the 352, 320 and 288 boxes
+
+
+def spc_library(x, m):
+    """The library yardstick of row 9: the composition's eleven ``F.conv3d``
+    calls alone, as ``SPCDense3D`` made them before the kernel (bf16, the
+    ``[B, X, Y, Z, C]`` view of ``x [B, X, Z, Y, C]`` as NCDHW, the kernels
+    as ``[Co, Ci, kx, ky, kz]`` views), each on ``x``.  The port never calls
+    it."""
+    xl = x.permute(0, 4, 1, 3, 2)
+    convs = [(w.to(x.device, torch.bfloat16).permute(4, 3, 0, 1, 2),
+              tuple(k // 2 for k in w.shape[:3])) for w in spc_weights(m).values()]
+    return lambda: [F.conv3d(xl, w, padding=pad) for w, pad in convs]
+
+
+def spc_dense3d_phase(dev):
+    """Row 9, ``spc_dense3d``, against its plain version at the stride-8
+    grids of the 352, 320 and 288 boxes (B = 1, C = 256, random running
+    statistics): four counted launches a call, every value finite, max|d|
+    within ``5e-3 * max|ref| + 1e-3``; the kernel's ms, the plain version's,
+    ``library_ms`` (:func:`spc_library`), ``bound_ms`` (:func:`spc_dense3d_flop`
+    at the bf16 peak), and the device ms of a call and of its four kernels
+    from the profiler.  Returns one row a grid, 352 first."""
+    from pasco_torch import kernels
+    from pasco_torch.ops import spc_dense3d as sd
+
+    ch, Z = 256, 4
+    m = spc_module(ch, 0).to(dev)
+    w, aff = spc_weights(m), m.affines()
+    rows = []
+    for side in SPC_SIDES:
+        g = torch.Generator().manual_seed(side)
+        x = torch.randn((1, side, Z, side, ch), generator=g).to(dev, torch.bfloat16)
+        before = kernels.LAUNCHES["spc_dense3d"]
+        got = sd.spc_dense3d(x, w, aff)
+        if kernels.LAUNCHES["spc_dense3d"] != before + 4:
+            raise AssertionError("spc_dense3d: not four counted launches a call")
+        ref = sd.spc_dense3d_plain(x, w, aff)
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        rel = (got - ref).norm().item() / ref.norm().item()
+        print(f"check spc_dense3d [1, {side}, {Z}, {side}, {ch}]: max|d| {err:.4g} of max|ref| "
+              f"{scale:.4g}, L2 {rel:.3g}", flush=True)
+        if not bool(torch.isfinite(got).all()) or err > 5e-3 * scale + 1e-3:
+            raise AssertionError(f"spc_dense3d at {side}: max|d| {err} of {scale}")
+        call = lambda: sd.spc_dense3d(x, w, aff)  # noqa: E731
+        flop = spc_dense3d_flop(side, side, Z, ch)
+        wbytes = sum(t.numel() for t in w.values()) * 2
+        fields = timing_fields(time_ms(call), time_ms(lambda: sd.spc_dense3d_plain(x, w, aff), 3),
+                               time_ms(spc_library(x, m)), flop,
+                               nbytes(x) + wbytes + x.numel() * 4)
+        fields.update(device_fields(call, "spc_dense3d_kernel"))
+        print(f"spc_dense3d [1, {side}, {Z}, {side}, {ch}]: {fields['ms']:.4f} ms a call, plain "
+              f"{fields['plain_ms']:.3f}, library (eleven F.conv3d) {fields['library_ms']:.4f}, "
+              f"bound {fields['bound_ms']:.4f} ({fields['bound_by']}, {flop / 1e12:.4f} TFLOP)"
+              f", device {fields['device_ms']:.4f} ms a call (kernels "
+              f"{fields['kernel_device_ms']:.4f}, "
+              f"{100 * fields['bound_ms'] / fields['kernel_device_ms']:.1f}% of the bound)",
+              flush=True)
+        rows.append(dict(name="spc_dense3d", source="pasco_torch/csrc/spc_dense3d.cu",
+                         replaces="none (XLA convs, pasco_tpu/models/bottleneck.py:zfold_conv3d)",
+                         shape=[1, side, Z, side, ch], max_abs_err=err, **fields))
+    return rows
+
+
 def column_conv_phase(occ1, dev, guards=True):
     """Row 7 through its entry point, ``block_sparse_conv3``, on the scan's
     s1 occupancy as ``[X, Y, Z]``: f32 ``[X, Y, Z, 64]`` input (masked),
@@ -926,10 +1030,10 @@ def check_output(cfg, out):
 def forward_launch_floor(S):
     """Kernel launches per inference forward at ``S`` subnets: the 42
     residual-block convs plus 2 refiner convs per scale and subnet, the
-    enc_s2/s4/s8 downs, the dec_s4/s2/s1 preambles, and one extraction per
-    decoder scale plus one per scale and subnet."""
+    enc_s2/s4/s8 downs, the dec_s4/s2/s1 preambles, one extraction per
+    decoder scale plus one per scale and subnet, and the bottleneck's four."""
     return {"masked_conv3": RES_CONVS + 6 * S, "down2_fused": 3, "up_preamble": 3,
-            "stream_extract": 3 + 3 * S}
+            "stream_extract": 3 + 3 * S, "spc_dense3d": 4}
 
 
 def forward_phase(cfg, scans, net, label="forward"):
@@ -2809,8 +2913,9 @@ def sparse_phase(dev, scan, scan3, train_col, lap, infer):
     (:func:`sparse_forward_phase`), ``run_scene_inference`` and the
     ``Evaluator`` at n_infers 1 (:func:`start_scene_inference` through
     ``infer``), and one ``train_step`` at the train box.  The path
-    launches none of rows 1-8: the launches are counted from 0 over steps
-    2-5 and must all be 0.  Returns them."""
+    launches none of rows 1-8, and row 9 (its ``DenseBottleneck``'s
+    ``SPCDense3D``) four times an inference forward and never in the train
+    step: the launches are counted from 0 over steps 2-5.  Returns them."""
     from pasco_torch import kernels
     from pasco_torch.core.config import PaSCoConfig
     from pasco_torch.data.semantic_kitti.params import CLASS_FREQUENCIES
@@ -2831,6 +2936,7 @@ def sparse_phase(dev, scan, scan3, train_col, lap, infer):
     sparse_forward_phase(sparse_config(PaSCoConfig(), MIMO_S), scan3, "sparse MIMO forward")
     torch.cuda.empty_cache()
     lap("sparse: forward, n_infers 3")
+    inferred = kernels.LAUNCHES["spc_dense3d"]
     lw, cw = loop.loss_weights(cfg, CLASS_FREQUENCIES, dev)
     state = loop.new_train_state(cfg, dev, seed=0)
     stats = {n: m.mean.clone() for n, m in state.net.named_modules() if isinstance(m, BatchNorm)}
@@ -2855,9 +2961,13 @@ def sparse_phase(dev, scan, scan3, train_col, lap, infer):
     if moved != len(stats):
         raise AssertionError(f"sparse train step: running statistics moved in {moved} of "
                              f"{len(stats)} BatchNorms")
-    print(f"sparse path launches of rows 1-8: {launches}", flush=True)
-    if any(launches.values()):
+    print(f"sparse path launches: {launches} (spc_dense3d {inferred} in the inference "
+          f"forwards)", flush=True)
+    if any(v for k, v in launches.items() if k != "spc_dense3d"):
         raise AssertionError(f"sparse path launched kernels: {launches}")
+    if not inferred or inferred % 4 or launches["spc_dense3d"] != inferred:
+        raise AssertionError(f"sparse path: spc_dense3d launched {inferred} times in the "
+                             f"forwards, {launches['spc_dense3d'] - inferred} in the train step")
     del state
     torch.cuda.empty_cache()
     lap("sparse: train step")
@@ -3135,7 +3245,9 @@ def run_phases(jobs, dev, lap, pool, tmp):
     gen = torch.Generator().manual_seed(0)
     rows = kernel_phases(cfg, scans[0][1], gen)
     rows.append(column_conv_phase(scan_masks(cfg, scans[0][1])[1], dev))
-    lap("kernels at box 352")
+    spc_rows = spc_dense3d_phase(dev)
+    rows.append(spc_rows[0])
+    lap("kernels at box 352, spc_dense3d at 352, 320 and 288")
 
     net = build_net(cfg, dev)
     net.reset_parameters(torch.Generator().manual_seed(0))

@@ -63,13 +63,18 @@ _SIGNATURES = {
     # f, order, ks, w, b, x, occ, P, F, C, n_cells, in_dtype, out_dtype,
     # stream
     "pasco_featurizer": [P] * 7 + [I] * 6 + [P],
+    # x, w0..w3, aff, first_b, first_f, addend, sum_b, res_f, res_b, scr,
+    # G, (kx, ky, kz) x 4, B, X, Z, Y, C, stream
+    "pasco_spc_dense3d": [P] * 13 + [I] * 18 + [P],
+    # X, Y, C, G, rx, ry -> shared memory bytes of a launch (0: too wide)
+    "pasco_spc_dense3d_smem": [I] * 6,
 }
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
 # launches its kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {
     "masked_conv3": 0, "conv3_dx": 0, "down2_fused": 0, "up_preamble": 0,
-    "stream_extract": 0, "column_conv3": 0, "featurizer": 0,
+    "stream_extract": 0, "column_conv3": 0, "featurizer": 0, "spc_dense3d": 0,
 }
 
 _lock = threading.Lock()

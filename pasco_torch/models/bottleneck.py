@@ -2,11 +2,16 @@
 ``pasco_tpu/models/bottleneck.py:148-251``: ``_Conv3d``, ``SPCDense3D`` and
 the sparse substrate's ``DenseBottleneck``).
 
-The reference runs these anisotropic convs as XLA, not Pallas, so the port
-runs them as ``F.conv3d``.  Volumes are ``[B, X, Y, Z, C]`` here (the
-reference module's ``[X, Y, Z, C]`` with the scans of a batch in front), and
-each conv runs once over the batch at N = B.  A conv's output and each
-BatchNorm's keep the input's dtype, as in the reference.
+The reference runs these anisotropic convs as XLA, not Pallas.  At
+inference on the card (a CUDA input, the module in eval mode, no gradient
+required, bf16 operands) ``SPCDense3D`` runs its whole body as the
+hand-written kernel ``ops/spc_dense3d.py`` (four launches, each BN folded
+to an affine on the f32 conv sum); in training, on the CPU and at a float32
+compute dtype it composes ``F.conv3d``, BatchNorm and ReLU as the reference
+does.  Volumes are ``[B, X, Y, Z, C]`` here (the reference module's ``[X,
+Y, Z, C]`` with the scans of a batch in front), and each conv runs once
+over the batch at N = B.  A conv's output and each BatchNorm's keep the
+input's dtype, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch import nn
 from pasco_torch.core.sparse import Box, SparseGrid, from_dense, to_dense
 from pasco_torch.models.blocks import add_dropout, apply_dropout
 from pasco_torch.models.norm import BatchNorm
+from pasco_torch.ops.spc_dense3d import pack_affines, spc_dense3d
 
 
 class Conv3d(nn.Module):
@@ -58,8 +64,35 @@ class SPCDense3D(nn.Module):
         for name, k in self.KERNELS.items():
             self.add_module(f"{name}_conv", Conv3d(ch, k))
             self.add_module(f"{name}_bn", BatchNorm(ch))
+        self._affines = None   # (stamp of the BN tensors, pack_affines(...))
+
+    def takes_kernel(self, x: torch.Tensor, compute_dtype: torch.dtype) -> bool:
+        """Whether this call runs as the kernel: a CUDA input, eval mode,
+        bf16 operands and no gradient required."""
+        return (x.is_cuda and not self.training and compute_dtype == torch.bfloat16
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or any(p.requires_grad for p in self.parameters()))))
+
+    def affines(self):
+        """Every BN's running-statistics affine, packed for the kernel; made
+        again whenever a BN tensor was replaced or updated in place (its
+        version counter moves, as under ``load_state_dict``)."""
+        bns = [getattr(self, f"{n}_bn") for n in self.KERNELS]
+        stamp = tuple((id(t), t._version, t.data_ptr())
+                      for bn in bns for t in (bn.scale, bn.bias, bn.mean, bn.var))
+        if self._affines is None or self._affines[0] != stamp:
+            with torch.no_grad():
+                packed = pack_affines({n: bn.affine() for n, bn in zip(self.KERNELS, bns)})
+            self._affines = (stamp, packed)
+        return self._affines[1]
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype):
+        if self.takes_kernel(x, compute_dtype):
+            xk = x.permute(0, 1, 3, 2, 4).to(torch.bfloat16).contiguous()   # [B, X, Z, Y, C]
+            weights = {n: getattr(self, f"{n}_conv").kernel for n in self.KERNELS}
+            out = spc_dense3d(xk, weights, self.affines())
+            return out.permute(0, 1, 3, 2, 4).to(x.dtype)
+
         def cbr(y, name):
             y = getattr(self, f"{name}_conv")(y, compute_dtype)
             return torch.relu(getattr(self, f"{name}_bn")(y))

@@ -5,10 +5,11 @@ of MIMO subnets ``S = n_infers`` (counterpart of
 Every U-Net stage computes on a dense ``[X, Z, Y, C]`` volume over the
 working box with an ``[X, Z, Y]`` occupancy mask.  At inference
 (``net.eval()``, the state a new net is built in) stage interiors run
-through the four hand-written kernels (``pasco_torch/ops``): the residual
+through the hand-written kernels (``pasco_torch/ops``): the residual
 and refiner convs through ``masked_conv3``, the encoder downs through
-``down2_fused``, the decoder preambles through ``up_preamble`` and every
-extraction through ``stream_extract``.  Each op returns exact zeros at
+``down2_fused``, the dense bottleneck through ``spc_dense3d``, the decoder
+preambles through ``up_preamble`` and every extraction through
+``stream_extract``.  Each op returns exact zeros at
 mask-invalid cells, so no stage needs a separate masking pass.
 
 In training (``net.train()``) BatchNorm normalises with batch statistics,

@@ -3,7 +3,10 @@ ragged shapes (tile edges in x, z and y, both conv tile geometries) and
 every channel width of the flagship path, the differentiable training
 conv's gradients likewise, a batch of scans through rows 1-3 in one
 launch each (bit for bit the per-scan launches) and through row 4 once
-per scan, the traced forward (the program's spans and counters on: the
+per scan, the dense bottleneck's four launches (row 9) at the ladder's
+stride-8 grids and on ragged ones, a batch against per-scan launches, its
+refusals and its route (no ``F.conv3d`` at inference, none of its launches
+in training), the traced forward (the program's spans and counters on: the
 same outputs, device ms per stage), the whole forward (n_infers 1, 3 and, with the KITTI-360 widths,
 2; a batch of two scans against the per-scan forwards) and one whole
 train step with the kernels against the
@@ -796,6 +799,154 @@ def test_wrappers_raise_on_wrong_input(dev):
         conv.masked_conv3(x, m, torch.zeros((27, 64, 64), device=dev))
     with pytest.raises(ValueError):
         extract.stream_extract(m, 10, x)
+
+
+# --------------------------------------------------------------------------
+# row 9: spc_dense3d, the dense bottleneck (SPCDense3D at inference)
+# --------------------------------------------------------------------------
+
+
+def _spc_case(dev, shape, ch, seed=0):
+    """``x [B, X, Z, Y, C]`` bf16, the module's kernels and packed affines
+    (random running statistics in every BN)."""
+    import chip_smoke as cs
+
+    m = cs.spc_module(ch, seed).to(dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(shape + (ch,), generator=g).to(dev, torch.bfloat16)
+    return m, x, cs.spc_weights(m), m.affines()
+
+
+def _spc_check(got, ref):
+    """The kernel against the plain version on the card: both sum the same
+    bf16 products in f32, in another order; x1, t and s are rounded to bf16
+    between launches, where a one-ulp flip moves what follows."""
+    err = (got - ref).abs().max().item()
+    assert err <= 5e-3 * ref.abs().max().item() + 1e-3, err
+    assert (got - ref).norm().item() <= 1e-3 * ref.norm().item()
+
+
+@pytest.mark.parametrize("side", (36, 40, 44))
+@pytest.mark.parametrize("B", (1, 2))
+@pytest.mark.parametrize("ch", (128, 256))
+def test_spc_dense3d_matches_plain_at_ladder_grids(dev, side, B, ch):
+    """The four launches against the plain version at the stride-8 grids of
+    the 288, 320 and 352 boxes ([X, Z, Y] = side, 4, side), every output
+    cell written (a NaN-filled pool underneath); at Z = 4 the (5, 5, 3) and
+    (7, 7, 5) convs skip the taps that reach only padding."""
+    from pasco_torch.ops import spc_dense3d as sd
+
+    m, x, w, aff = _spc_case(dev, (B, side, 4, side), ch)
+    _nan_pool(x.shape, dev)
+    torch.full(x.shape, float("nan"), device=dev)               # and one of f32
+    got = _counted("spc_dense3d", lambda: sd.spc_dense3d(x, w, aff), 4)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    _spc_check(got, sd.spc_dense3d_plain(x, w, aff))
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 2, 7), (2, 3, 1, 9), (1, 12, 4, 11), (1, 1, 3, 130)])
+@pytest.mark.parametrize("ch", (64, 192))
+def test_spc_dense3d_matches_plain_small_grids(dev, shape, ch):
+    """Ragged grids (a tile of 128 raster cells over several x lines, a
+    plane of one x line, Z = 1, 2, 3 and 4) at the 64-channel blocks."""
+    from pasco_torch.ops import spc_dense3d as sd
+
+    m, x, w, aff = _spc_case(dev, shape, ch, seed=1)
+    _nan_pool(x.shape, dev)
+    torch.full(x.shape, float("nan"), device=dev)
+    _spc_check(sd.spc_dense3d(x, w, aff), sd.spc_dense3d_plain(x, w, aff))
+
+
+@pytest.mark.parametrize("ch", (128, 256))
+def test_spc_dense3d_batch_equals_per_scan(dev, ch):
+    """One launch set for a batch of two scans is bit for bit two per-scan
+    launch sets."""
+    from pasco_torch.ops import spc_dense3d as sd
+
+    m, x, w, aff = _spc_case(dev, (2, 44, 4, 44), ch, seed=2)
+    got = sd.spc_dense3d(x, w, aff)
+    for b in range(2):
+        assert torch.equal(got[b:b + 1], sd.spc_dense3d(x[b:b + 1].contiguous(), w, aff)), b
+
+
+def test_spc_dense3d_refuses_other_inputs(dev):
+    """A width, dtype, layout or kernel shape the kernel does not take, and a
+    plane too wide for its halo, raise (no fallback)."""
+    from pasco_torch.ops import spc_dense3d as sd
+
+    m, x, w, aff = _spc_case(dev, (1, 6, 4, 6), 128)
+    with pytest.raises(ValueError):
+        sd.spc_dense3d(x.float(), w, aff)                        # f32
+    with pytest.raises(ValueError):
+        sd.spc_dense3d(x.transpose(2, 3), w, aff)                 # not contiguous
+    with pytest.raises(ValueError):
+        sd.spc_dense3d(x[0], w, aff)                              # no batch axis
+    with pytest.raises(ValueError):
+        sd.spc_dense3d(x[..., :96].contiguous(), w, aff)          # C = 96
+    with pytest.raises(ValueError):
+        sd.spc_dense3d(x, {**w, "a4": w["a4"][:, :, :4]}, aff)     # an even extent
+    with pytest.raises(ValueError):
+        sd.spc_dense3d(torch.zeros((1, 4, 4, 2000, 128), dtype=torch.bfloat16, device=dev),
+                       w, aff)                                     # halo too wide
+
+
+def test_spc_dense3d_module_route(dev, monkeypatch):
+    """``SPCDense3D`` on the card: in eval mode under no_grad it calls no
+    ``F.conv3d`` (patched to raise) and launches the kernel four times, within
+    the plain version's bound; in training mode it launches nothing and
+    composes the convs."""
+    import torch.nn.functional as F
+
+    from pasco_torch.ops import spc_dense3d as sd
+
+    m, x, w, aff = _spc_case(dev, (1, 44, 4, 44), 256, seed=3)
+    xm = x.float().permute(0, 1, 3, 2, 4)                        # [B, X, Y, Z, C] as the net
+    conv3d = F.conv3d
+
+    def refuse(*a, **k):
+        raise AssertionError("F.conv3d called")
+
+    monkeypatch.setattr(F, "conv3d", refuse)
+    with torch.no_grad():
+        got = _counted("spc_dense3d", lambda: m(xm, torch.bfloat16), 4)
+    _spc_check(got.permute(0, 1, 3, 2, 4), sd.spc_dense3d_plain(x, w, aff))
+    monkeypatch.setattr(F, "conv3d", conv3d)
+    m.train()
+    out = _counted("spc_dense3d", lambda: m(xm, torch.bfloat16), 0)
+    assert out.requires_grad and torch.isfinite(out).all()
+
+
+def test_eval_forward_calls_no_conv3d(dev, monkeypatch):
+    """The whole dense forward at ``flagship_narrow_config`` on the card
+    (eval, no_grad): no ``F.conv3d``, four ``spc_dense3d`` launches a
+    forward."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pasco_torch.core.config import flagship_narrow_config
+    from pasco_torch.models.unet import ModelInput, build_net
+
+    cfg = flagship_narrow_config(n_infers=1)
+    r = np.random.RandomState(0)
+    P = cfg.capacity.num_points
+    coords = np.zeros((P, 4), np.int32)
+    coords[:, 1:] = np.stack([r.randint(0, e, P) for e in cfg.scene.scene_size], 1)
+    gmax = np.array(cfg.scene.scene_size, np.int32) - 1
+    inp = ModelInput(
+        torch.from_numpy(r.randn(P, cfg.model.in_channels).astype(np.float32)),
+        torch.from_numpy(coords), torch.arange(P) < 3000, torch.zeros(3, dtype=torch.int32),
+        torch.from_numpy(gmax), torch.zeros((1, 3), dtype=torch.int32),
+        torch.from_numpy(gmax[None]))
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+
+    def refuse(*a, **k):
+        raise AssertionError("F.conv3d called")
+
+    monkeypatch.setattr(F, "conv3d", refuse)
+    with torch.no_grad():
+        for _ in range(2):
+            _counted("spc_dense3d", lambda: net(ModelInput(*(t.to(dev) for t in inp))), 4)
 
 
 def _forward_matches_cpu_plain(dev, S, kitti360=False):
