@@ -15,6 +15,9 @@ are per channel, the bbox masks read the runtime ``global_min/max``, the
 transformer's positional encoding comes from the cell coordinates, and the
 extractions keep the flat-index order of ``[X, Z, Y]``, which for a shared
 box minimum is the same order in every box that covers the scan.
+
+The sparse substrate (``models/unet.py:PaSCoNet``, one scan per call) takes
+the same call: its cell tables and its dense bottleneck span the box.
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ from pasco_torch.models.blocks import (
     ConvParams, ResidualBlock, SparseConv, SparseGenerativeDeconv, add_dropout,
     apply_dropout, compute_dtype_of, masked_bn)
 from pasco_torch.ops.sparse_conv import build_rulebook, lookup_features, submanifold_conv3d
+from pasco_torch.utils import timing
 
 
 def union_skip(g: SparseGrid, skip: SparseGrid, box: Box) -> SparseGrid:
@@ -184,45 +185,47 @@ class GenerativeDecoder(nn.Module):
         xs: Dict[int, SparseGrid] = {}
         sem_at: Dict[int, torch.Tensor] = {}
         for i, scale in enumerate((4, 2, 1)):
-            x, sem = getattr(self, f"block_s{scale}")(
-                x, skips[i], box, bbox_min, bbox_max, generator, drop_on)
-            w = None if compl_labelweights is None else compl_labelweights.get(scale)
-            keep, score = occupancy_keep_scores(sem, x.mask, w)
-            score = torch.log(score.clamp(min=1e-20))
-            if self.training:
-                score = score + gumbel(score.shape, generator, score.device)
-            capacity = self.cap.dec_capacity(scale)
-            ch = x.num_channels
-            # the logits ride with the features, in the features' dtype
-            carry = torch.cat([x.feats, sem.reshape(x.capacity, -1).to(x.feats.dtype)], -1)
-            packed = top_k_compact(x.with_feats(carry), score, keep, capacity)
-            x = packed.with_feats(packed.feats[:, :ch])
-            xs[scale] = x
-            sem_at[scale] = packed.feats[:, ch:].float().reshape(capacity, S, C)
+            with timing.span(f"decoder.s{scale}"):
+                x, sem = getattr(self, f"block_s{scale}")(
+                    x, skips[i], box, bbox_min, bbox_max, generator, drop_on)
+                w = None if compl_labelweights is None else compl_labelweights.get(scale)
+                keep, score = occupancy_keep_scores(sem, x.mask, w)
+                score = torch.log(score.clamp(min=1e-20))
+                if self.training:
+                    score = score + gumbel(score.shape, generator, score.device)
+                capacity = self.cap.dec_capacity(scale)
+                ch = x.num_channels
+                # the logits ride with the features, in the features' dtype
+                carry = torch.cat([x.feats, sem.reshape(x.capacity, -1).to(x.feats.dtype)], -1)
+                packed = top_k_compact(x.with_feats(carry), score, keep, capacity)
+                x = packed.with_feats(packed.feats[:, :ch])
+                xs[scale] = x
+                sem_at[scale] = packed.feats[:, ch:].float().reshape(capacity, S, C)
 
         panop_grids: Dict[int, SparseGrid] = {}
         sem_pruned = torch.zeros((S, self.cap.panop_s1, C), device=x.feats.device)
         for scale in (4, 2, 1) if is_predict_panop else ():
-            g, sem = xs[scale], sem_at[scale]
-            top_prob = torch.softmax(sem, -1).amax(-1)                  # [N, S]
-            top_class = sem.argmax(-1)
-            c = g.coords[None, :, 1:]
-            in_bbox = ((c >= subnet_bbox_min[:, None, :])
-                       & (c <= subnet_bbox_max[:, None, :])).all(-1)     # [S, N]
-            keeps = (top_class.T != 0) & in_bbox & g.mask[None, :]
-            pcap = self.cap.panop_capacity(scale)
-            ch = g.num_channels
-            refiner = getattr(self, f"voxel_feats_s{scale}")
-            refined, carried = [], []
-            for s in range(S):
-                carry = torch.cat([g.feats, sem[:, s].to(g.feats.dtype)], -1)
-                p = top_k_compact(g.with_feats(carry), top_prob[:, s], keeps[s], pcap)
-                coords = p.coords.clone()
-                coords[:, 0] = s
-                refined.append(refiner(SparseGrid(coords, p.feats[:, :ch], p.mask, p.stride),
-                                       box, s))
-                carried.append(p.feats[:, ch:].float())
-            panop_grids[scale] = stack_grids(refined)
-            if scale == 1:
-                sem_pruned = torch.stack(carried)
+            with timing.span(f"refiner.s{scale}"):
+                g, sem = xs[scale], sem_at[scale]
+                top_prob = torch.softmax(sem, -1).amax(-1)                  # [N, S]
+                top_class = sem.argmax(-1)
+                c = g.coords[None, :, 1:]
+                in_bbox = ((c >= subnet_bbox_min[:, None, :])
+                           & (c <= subnet_bbox_max[:, None, :])).all(-1)     # [S, N]
+                keeps = (top_class.T != 0) & in_bbox & g.mask[None, :]
+                pcap = self.cap.panop_capacity(scale)
+                ch = g.num_channels
+                refiner = getattr(self, f"voxel_feats_s{scale}")
+                refined, carried = [], []
+                for s in range(S):
+                    carry = torch.cat([g.feats, sem[:, s].to(g.feats.dtype)], -1)
+                    p = top_k_compact(g.with_feats(carry), top_prob[:, s], keeps[s], pcap)
+                    coords = p.coords.clone()
+                    coords[:, 0] = s
+                    refined.append(refiner(SparseGrid(coords, p.feats[:, :ch], p.mask,
+                                                      p.stride), box, s))
+                    carried.append(p.feats[:, ch:].float())
+                panop_grids[scale] = stack_grids(refined)
+                if scale == 1:
+                    sem_pruned = torch.stack(carried)
         return DecoderOutput(xs, sem_at, panop_grids, sem_pruned)

@@ -19,6 +19,7 @@ from pasco_torch.models.decoder import GenerativeDecoder
 from pasco_torch.models.encoder import Encoder
 from pasco_torch.models.transformer import TransformerPredictor
 from pasco_torch.ops.dense_ops import point_dropout
+from pasco_torch.utils import timing
 
 
 class ModelInput(NamedTuple):
@@ -100,7 +101,11 @@ class PaSCoNet(nn.Module):
     the training forward (batch statistics, Gumbel-noised caps, dropouts
     live); ``mc_dropout=True`` makes the dropouts live at inference.  Every
     draw comes from ``generator``.  The forward keeps every count on the
-    device, so it makes the host wait for the card nowhere."""
+    device, so it makes the host wait for the card nowhere.  Its stage
+    spans (:mod:`pasco_torch.utils.timing`) have the dense substrate's
+    names: ``featurize``, ``encoder``, ``bottleneck``, ``decoder.s4/s2/s1``,
+    ``refiner.s4/s2/s1`` (in :class:`~pasco_torch.models.decoder.
+    GenerativeDecoder`) and ``transformer``."""
 
     def __init__(self, cfg: PaSCoConfig):
         super().__init__()
@@ -142,25 +147,30 @@ class PaSCoNet(nn.Module):
         drop_on = self.training or mc_dropout
         box = Box.create(inp.global_min, box_extent or cfg.scene.box_extent)
 
-        pm = inp.point_mask
-        if drop_on and m.encoder_dropouts[0] > 0.0:
-            pm = point_dropout(pm, m.encoder_dropouts[0], generator)
-        per_subnet = self.cylinder_feat(inp.point_feats, inp.point_coords, pm, box, S)
-        merged = mimo_merge(per_subnet, box, S, cap.enc_s1)
-        merged = merged.with_feats(merged.feats.to(self.cd))
+        with timing.span("featurize"):
+            pm = inp.point_mask
+            if drop_on and m.encoder_dropouts[0] > 0.0:
+                pm = point_dropout(pm, m.encoder_dropouts[0], generator)
+            per_subnet = self.cylinder_feat(inp.point_feats, inp.point_coords, pm, box, S)
+            merged = mimo_merge(per_subnet, box, S, cap.enc_s1)
+            merged = merged.with_feats(merged.feats.to(self.cd))
 
-        enc = self.encoder(merged, box, generator, drop_on)
-        bott = self.dense_bottleneck(enc[3], box, generator, drop_on)
+        with timing.span("encoder"):
+            enc = self.encoder(merged, box, generator, drop_on)
+        with timing.span("bottleneck"):
+            bott = self.dense_bottleneck(enc[3], box, generator, drop_on)
         dec = self.decoder(bott, enc[:3], box, inp.global_min, inp.global_max, inp.subnet_min,
                            inp.subnet_max, labelweights, generator, is_predict_panop, drop_on)
 
         predictor = None
         if is_predict_panop:
-            one = {k: SparseGrid(g.coords[None], g.feats[None], g.mask[None], g.stride)
-                   for k, g in dec.panop_grids.items()}
-            p = self.transformer(one, Box(box.minimum[None], box.extent), generator, drop_on)
-            predictor = type(p)(p.query_logits[0], p.voxel_logits[0],
-                                [(c[0], v[0]) for c, v in p.aux])
+            with timing.span("transformer"):
+                one = {k: SparseGrid(g.coords[None], g.feats[None], g.mask[None], g.stride)
+                       for k, g in dec.panop_grids.items()}
+                p = self.transformer(one, Box(box.minimum[None], box.extent), generator,
+                                     drop_on)
+                predictor = type(p)(p.query_logits[0], p.voxel_logits[0],
+                                    [(c[0], v[0]) for c, v in p.aux])
         return ModelOutput(sem_grids=dec.xs, sem_logits=dec.sem_logits,
                            panop_grids=dec.panop_grids,
                            sem_logits_pruned=dec.sem_logits_pruned, predictor=predictor)

@@ -17,6 +17,14 @@ into an f32 accumulator, as the reference groups them (``:121-136``).
 
 Weight layouts: ``[K, Cin, Cout]`` with the offsets ordered by
 :func:`kernel_offsets` (x-major, z-fastest).
+
+Tracing (:mod:`pasco_torch.utils.timing`): every kernel map
+(:func:`build_rulebook`, and :func:`strided_conv3d`'s unique and map) is a
+``pasco.sparse.rulebook`` span, and each gather-GEMM-scatter conv
+(:func:`conv_with_rulebook`, :func:`strided_conv3d`,
+:func:`generative_deconv3d`) a ``pasco.sparse.conv`` span that adds its
+found (tap, row) pairs to ``sparse_conv.pairs`` and the rows times taps it
+computes to ``sparse_conv.rows``: their ratio is the padding's share.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from pasco_torch.core.sparse import (
     INVALID_KEY, Box, SparseGrid, build_dense_table, linear_keys, lookup_dense_table,
     unique, where_valid)
+from pasco_torch.utils import timing
 
 
 class Rulebook(NamedTuple):
@@ -75,15 +84,16 @@ def lookup_offsets(table: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor
 def build_rulebook(coords: torch.Tensor, mask: torch.Tensor, box: Box, stride: int,
                    kernel_size: int) -> Rulebook:
     """Rulebook of a submanifold conv (output coords == input coords); the
-    centre tap is every row itself."""
-    table = build_dense_table(coords, mask, box, stride)
-    rb = lookup_offsets(table, coords, mask, box, stride, kernel_size)
-    if kernel_size % 2:
-        centre = kernel_size ** 3 // 2
-        rb.rows[centre] = torch.arange(coords.shape[0], dtype=rb.rows.dtype,
-                                       device=coords.device)
-        rb.found[centre] = mask
-    return rb
+    centre tap is every row itself.  Span ``pasco.sparse.rulebook``."""
+    with timing.span("sparse.rulebook"):
+        table = build_dense_table(coords, mask, box, stride)
+        rb = lookup_offsets(table, coords, mask, box, stride, kernel_size)
+        if kernel_size % 2:
+            centre = kernel_size ** 3 // 2
+            rb.rows[centre] = torch.arange(coords.shape[0], dtype=rb.rows.dtype,
+                                           device=coords.device)
+            rb.found[centre] = mask
+        return rb
 
 
 def _gather_index(rb: Rulebook, n_in: int) -> torch.Tensor:
@@ -135,15 +145,32 @@ class RulebookConvFn(torch.autograd.Function):
         return (None if dxp is None else dxp[:-1].to(x.dtype), None, dw.to(w.dtype))
 
 
+def _count_work(found: torch.Tensor, rows: int, scale: int = 1) -> None:
+    """The counters of one conv where tracing is on: ``sparse_conv.pairs``,
+    the found (tap, row) pairs (``found``'s set entries, times ``scale``),
+    the useful work; ``sparse_conv.rows``, the rows times taps it computes,
+    padding included."""
+    if timing.enabled():
+        timing.count("sparse_conv.pairs", found.sum(), scale)
+        timing.count("sparse_conv.rows", rows)
+
+
+def _rulebook_conv(feats, rb: Rulebook, weight, bias, compute_dtype) -> torch.Tensor:
+    cd = compute_dtype or feats.dtype
+    _count_work(rb.found, rb.found.numel())
+    out = RulebookConvFn.apply(feats.to(cd), _gather_index(rb, feats.shape[0]),
+                               weight.to(cd))
+    return out if bias is None else out + bias
+
+
 def conv_with_rulebook(feats: torch.Tensor, rb: Rulebook, weight: torch.Tensor,
                        bias: Optional[torch.Tensor] = None,
                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Sparse conv of ``feats [N_in, Cin]`` (masked) over ``rb``; f32
-    ``[N_out, Cout]`` (``N_out`` is the rulebook's row count)."""
-    cd = compute_dtype or feats.dtype
-    out = RulebookConvFn.apply(feats.to(cd), _gather_index(rb, feats.shape[0]),
-                               weight.to(cd))
-    return out if bias is None else out + bias
+    ``[N_out, Cout]`` (``N_out`` is the rulebook's row count).  Span
+    ``pasco.sparse.conv``."""
+    with timing.span("sparse.conv"):
+        return _rulebook_conv(feats, rb, weight, bias, compute_dtype)
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
@@ -176,19 +203,24 @@ def strided_conv3d(grid: SparseGrid, box: Box, weight: torch.Tensor, out_capacit
                    bias: Optional[torch.Tensor] = None,
                    compute_dtype: Optional[torch.dtype] = None) -> SparseGrid:
     """Kernel-2 stride-2 down conv: the outputs are the unique parents
-    ``floor(c / 2s) * 2s``, each gathering its up to 8 children."""
+    ``floor(c / 2s) * 2s``, each gathering its up to 8 children.  Its
+    unique and kernel map are a ``pasco.sparse.rulebook`` span, its
+    gather-GEMM-scatter a ``pasco.sparse.conv`` span."""
     assert weight.shape[0] == 8, "strided_conv3d implements ks=2, stride=2"
     in_stride = grid.stride
     out_stride = in_stride * 2
-    parent_xyz = torch.div(grid.coords[:, 1:], out_stride, rounding_mode="floor") * out_stride
-    parents = torch.cat([grid.coords[:, :1], parent_xyz], -1)
-    out_coords, out_mask, _, _ = unique(parents, grid.mask, box, out_stride, out_capacity)
-    table = build_dense_table(grid.coords, grid.mask, box, in_stride)
-    rb = lookup_offsets(table, out_coords, out_mask, box, in_stride, 2)
-    out = conv_with_rulebook(grid.masked_feats(), rb, weight, None, compute_dtype)
-    if bias is not None:
-        out = out + bias
-    out = where_valid(out_mask, out).to(grid.feats.dtype)
+    with timing.span("sparse.rulebook"):
+        parent_xyz = torch.div(grid.coords[:, 1:], out_stride,
+                               rounding_mode="floor") * out_stride
+        parents = torch.cat([grid.coords[:, :1], parent_xyz], -1)
+        out_coords, out_mask, _, _ = unique(parents, grid.mask, box, out_stride, out_capacity)
+        table = build_dense_table(grid.coords, grid.mask, box, in_stride)
+        rb = lookup_offsets(table, out_coords, out_mask, box, in_stride, 2)
+    with timing.span("sparse.conv"):
+        out = _rulebook_conv(grid.masked_feats(), rb, weight, None, compute_dtype)
+        if bias is not None:
+            out = out + bias
+        out = where_valid(out_mask, out).to(grid.feats.dtype)
     return SparseGrid(out_coords, out, out_mask, out_stride)
 
 
@@ -197,24 +229,27 @@ def generative_deconv3d(grid: SparseGrid, weight: torch.Tensor,
                         compute_dtype: Optional[torch.dtype] = None) -> SparseGrid:
     """Kernel-2 stride-2 generative transposed conv: each row emits its 8
     children at ``c + offset * stride / 2`` (one ``[N, Cin] @ [Cin,
-    8 Cout]`` product); the output has ``8 N`` rows."""
+    8 Cout]`` product); the output has ``8 N`` rows.  Span
+    ``pasco.sparse.conv``; its pairs are the valid rows' 8 children."""
     assert weight.shape[0] == 8
     assert grid.stride % 2 == 0, "cannot upsample below stride 1"
     out_stride = grid.stride // 2
     n, c_in = grid.feats.shape
     c_out = weight.shape[-1]
     cd = compute_dtype or grid.feats.dtype
-    w = weight.to(cd).permute(1, 0, 2).reshape(c_in, 8 * c_out)
-    out = _dot_f32(grid.masked_feats(), w, cd).reshape(n, 8, c_out)
-    if bias is not None:
-        out = out + bias
-    offsets = _offsets(2, out_stride, grid.coords.device)
-    child_xyz = grid.coords[:, None, 1:] + offsets[None]
-    child_b = grid.coords[:, None, :1].expand(n, 8, 1)
-    out_coords = torch.cat([child_b, child_xyz], -1).reshape(n * 8, 4)
-    out_mask = grid.mask[:, None].expand(n, 8).reshape(n * 8)
-    out = where_valid(out_mask, out.reshape(n * 8, c_out))
-    return SparseGrid(out_coords, out.to(grid.feats.dtype), out_mask, out_stride)
+    with timing.span("sparse.conv"):
+        _count_work(grid.mask, 8 * n, 8)
+        w = weight.to(cd).permute(1, 0, 2).reshape(c_in, 8 * c_out)
+        out = _dot_f32(grid.masked_feats(), w, cd).reshape(n, 8, c_out)
+        if bias is not None:
+            out = out + bias
+        offsets = _offsets(2, out_stride, grid.coords.device)
+        child_xyz = grid.coords[:, None, 1:] + offsets[None]
+        child_b = grid.coords[:, None, :1].expand(n, 8, 1)
+        out_coords = torch.cat([child_b, child_xyz], -1).reshape(n * 8, 4)
+        out_mask = grid.mask[:, None].expand(n, 8).reshape(n * 8)
+        out = where_valid(out_mask, out.reshape(n * 8, c_out))
+        return SparseGrid(out_coords, out.to(grid.feats.dtype), out_mask, out_stride)
 
 
 def sparse_max_pool(grid: SparseGrid, factor: int, box: Box, out_capacity: int) -> SparseGrid:

@@ -9,7 +9,8 @@ memory and read once after the traced forwards; and the seed helper.
     rows = timing.drain()     # one synchronise, then every row
 
 The program marks its work with ``with timing.span("encoder"):`` and
-``timing.count("masked_conv3.tile_cells", n_active, 256)``.  Callers switch
+``timing.count("masked_conv3.tile_cells", n_active, 256)``; a counter whose
+value takes work to compute asks :func:`enabled` first.  Callers switch
 tracing with :func:`tracing` only.
 
 Off (the default) :func:`span` returns one shared no-op context after a
@@ -139,6 +140,12 @@ def tracing(on: bool) -> None:
     recorded stays until :func:`drain`."""
     global _on
     _on = bool(on)
+
+
+def enabled() -> bool:
+    """Whether tracing is on: a caller that must compute a counter's value
+    (a reduction on the card) does it only then."""
+    return _on
 
 
 def span(name: str, events: bool = True):

@@ -1265,3 +1265,74 @@ def test_waffleiron_train_step_card_matches_cpu(dev):
             continue
         err = (got - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item() + 1e-5, (k, err)
+
+
+# --------------------------------------------------------------------------
+# the sparse substrate (substrate="sparse") through AdaptiveForward
+# --------------------------------------------------------------------------
+
+
+def _sparse_net(dev):
+    """PaSCo-single on the sparse substrate (seeded random init) and the
+    third of bench.py's scans, which picks the 288 box."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.models.unet import build_net
+
+    cfg = PaSCoConfig()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, substrate="sparse"))
+    scan = cs.make_scans(cfg, 3, dev)[2]
+    assert cs.box_of(cfg, scan[0]) == (288, 288, 32)
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    return net, scan[1]
+
+
+@pytest.mark.parametrize("side", [288, 352])
+def test_sparse_adaptive_forward_is_the_direct_call(dev, side):
+    """``AdaptiveForward`` over the sparse net at a box gives the kept cells
+    and logits of a direct ``PaSCoNet`` call at that box."""
+    from pasco_torch.inference.dispatch import AdaptiveForward
+
+    net, inp = _sparse_net(dev)
+    fwd = AdaptiveForward(net)
+    box = (side, side, 32)
+    with torch.no_grad():
+        got, want = fwd(inp, box), net(inp, box_extent=box)
+        if side == 288:
+            assert fwd.box_for(inp) == box
+            picked = fwd(inp)
+            assert torch.equal(picked.sem_grids[1].coords, want.sem_grids[1].coords)
+    for s in (4, 2, 1):
+        for a, b in ((got.sem_grids[s], want.sem_grids[s]),
+                     (got.panop_grids[s], want.panop_grids[s])):
+            assert torch.equal(a.mask, b.mask) and torch.equal(a.coords[a.mask], b.coords[b.mask])
+    assert torch.equal(got.sem_logits[1], want.sem_logits[1])
+
+
+def test_sparse_stage_spans_cover_the_dispatch(dev):
+    """One traced sparse forward: the stage spans' device ms sum to at least
+    99% of ``pasco.dispatch``'s, and the convs and rulebooks have spans."""
+    from pasco_torch.inference.dispatch import AdaptiveForward
+    from pasco_torch.utils import timing
+
+    net, inp = _sparse_net(dev)
+    fwd = AdaptiveForward(net)
+    with torch.no_grad():
+        fwd(inp)
+        timing.drain()
+        timing.tracing(True)
+        try:
+            fwd(inp)
+        finally:
+            timing.tracing(False)
+    rows = timing.drain()["rows"]
+    root = rows[0]
+    assert root["name"] == "pasco.dispatch"
+    stages = [r for r in rows if r["parent"] == root["id"]]
+    assert len(stages) == 10
+    assert sum(r["device_ms"] for r in stages) >= 0.99 * root["device_ms"]
+    names = {r["name"] for r in rows}
+    assert {"pasco.sparse.conv", "pasco.sparse.rulebook"} <= names
