@@ -47,8 +47,8 @@
    (:func:`alternating_extraction`); ``scripts_torch/bench.py``'s pipelined
    protocol on ``bench.py``'s six scans through ``AdaptiveForward`` and
    through the fixed 352 box, once each, with each scan's box, scans/s,
-   device ms per scan, peak memory and the launches per forward of every
-   box (:func:`bench_phase`); the 288 scan through 288 and 352, kept cells
+   device ms per scan, peak memory and the launches of one replayed
+   forward at every box, read in a profiler trace (:func:`bench_phase`); the 288 scan through 288 and 352, kept cells
    identical and logits within the bf16 bound (:func:`two_boxes_check`);
    then the batched forward (``B`` scans per call): rows 1-3 on a batch of
    two of bench.py's scans (distinct box corners) at 352, each in one
@@ -110,8 +110,8 @@
    their counts; then a one-rank NCCL group takes the same step;
 11. the KITTI-360 preset, ``kitti360_config(n_infers=2)`` at full width on
    synthetic 2-view scans with 8 raw channels (:func:`kitti360_phase`):
-   one forward through ``AdaptiveForward`` launching each kernel exactly
-   ``forward_launch_floor(2)`` times, ``run_scene_inference`` and the
+   one forward through ``AdaptiveForward`` whose profiler trace holds each
+   kernel exactly ``forward_launch_floor(2)`` times, ``run_scene_inference`` and the
    ``Evaluator`` (19 classes), one panoptic train step;
 12. the sparse substrate (``substrate="sparse"``, :func:`sparse_phase`),
    which launches none of the kernels: ``flagship_narrow_config(1)`` with
@@ -274,6 +274,27 @@ def device_ms(calls, pattern=""):
     """Median over calls of the device ms of the activities whose name
     contains ``pattern`` (all of them by default)."""
     return statistics.median(sum(ms for name, ms in c if pattern in name) for c in calls)
+
+
+# The kernel each main-path wrapper launches once a call, by its
+# ``kernels.LAUNCHES`` key: a part of the kernel's name in a trace.
+KERNEL_NAMES = {"masked_conv3": "masked_conv3_kernel", "down2_fused": "down2_kernel",
+                "up_preamble": "up_preamble_kernel", "stream_extract": "extract_kernel",
+                "spc_dense3d": "spc_dense3d_kernel"}
+
+
+def kernel_sequence(call):
+    """The ``kernels.LAUNCHES`` keys of the main-path kernels among one
+    call's device activities (a list of :func:`profile_call`), in order."""
+    return [k for name, _ in call for k, part in KERNEL_NAMES.items() if part in name]
+
+
+def traced_launches(fn):
+    """Launches by ``kernels.LAUNCHES`` key of one call of ``fn()``, counted
+    in a profiler trace: a forward replayed from a CUDA graph runs no
+    wrapper, so ``kernels.LAUNCHES`` does not see its launches."""
+    seq = kernel_sequence(profile_call(fn, reps=3)[0])
+    return {k: seq.count(k) for k in KERNEL_NAMES}
 
 
 def eval_scene(cfg, rng, n_points=120000, max_angle=30.0):
@@ -1710,51 +1731,26 @@ def alternating_extraction(cfg, box_scans, gen, n_calls=20):
           f"({' -> '.join(map(str, order))}, tiles {tiles}), bit-exact every call", flush=True)
 
 
-def counting_forward(net):
-    """An ``AdaptiveForward`` over ``net`` that counts the kernel launches of
-    each box's forwards (host side: no call waits for the card), its
-    warm-up included."""
-    from pasco_torch import kernels
-    from pasco_torch.inference.dispatch import AdaptiveForward
-
-    class CountingForward(AdaptiveForward):
-        def __init__(self):
-            super().__init__(net)
-            self.per_box, self.calls = {}, {}
-
-        def __call__(self, inp, box=None):
-            box = box if box is not None else self.box_for(inp)
-            before = dict(kernels.LAUNCHES)
-            out = super().__call__(inp, box)
-            acc = self.per_box.setdefault(box, dict.fromkeys(before, 0))
-            for k, v in kernels.LAUNCHES.items():
-                acc[k] += v - before[k]
-            self.calls[box] = self.calls.get(box, 0) + 1
-            return out
-
-    return CountingForward()
-
-
 def bench_phase(cfg, scans, net, label, modes=("adaptive", "fixed")):
     """``scripts_torch/bench.py``'s pipelined protocol on ``bench.py``'s
     scans through :class:`AdaptiveForward` and through the fixed 352 box, in
     turns (``modes``: adaptive, then fixed, by default), after one warm-up
     forward per candidate box.  Prints each scan's box, scans/s and device
-    ms per scan of each run, the peak memory and the launches per forward of each box,
-    which must reach :func:`forward_launch_floor`.  The counts are set to 0
-    just before the warm-up and read after the last run.  Returns
-    (results by mode, launches per box, forwards per box)."""
-    from pasco_torch import kernels
+    ms per scan of each run, the peak memory and the launches of one
+    forward at each box after the runs, read in a profiler trace
+    (:func:`traced_launches`: the forwards replay CUDA graphs), which must
+    reach :func:`forward_launch_floor`.  Returns (results by mode,
+    launches per box)."""
+    from pasco_torch.inference.dispatch import AdaptiveForward
 
     bench = _script("bench")
     dev = scans[0][1].point_feats.device
-    fwd = counting_forward(net)
+    fwd = AdaptiveForward(net)
     inps = [inp for _, inp in scans]
     boxes = [box_of(cfg, col) for col, _ in scans]
     print(f"{label} boxes: {[b[0] for b in boxes]}", flush=True)
     syncs = bench.host_syncs(lambda: bench.reduced(net(inps[0], box_extent=boxes[0])))
     print(f"{label}: {len(syncs)} host syncs per forward {syncs}", flush=True)
-    kernels.reset_launches()
     fwd.warmup(inps[0])
     res = {}
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1768,20 +1764,18 @@ def bench_phase(cfg, scans, net, label, modes=("adaptive", "fixed")):
               f"{r['enqueue_s']:.3f} s of {r['wall_s']:.3f} s", flush=True)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     floor = forward_launch_floor(cfg.model.n_infers)
-    per_forward = {b[0]: {k: v / fwd.calls[b] for k, v in fwd.per_box[b].items() if v}
-                   for b in sorted(fwd.per_box)}
-    print(f"{label}: peak {peak:.3f} GB, launches per forward by box {per_forward} "
-          f"(floors {floor}), forwards by box "
-          f"{ {b[0]: n for b, n in sorted(fwd.calls.items())} }", flush=True)
-    short = {(b[0], k): fwd.per_box[b][k] / fwd.calls[b] for b in fwd.per_box
-             for k in floor if fwd.per_box[b][k] < floor[k] * fwd.calls[b]}
+    with torch.no_grad():
+        per_box = {b: traced_launches(lambda b=b: fwd(inps[0], b)) for b in fwd.cands}
+    print(f"{label}: peak {peak:.3f} GB, launches of one traced forward by box "
+          f"{ {b[0]: n for b, n in per_box.items()} } (floors {floor})", flush=True)
+    short = {(b[0], k): n[k] for b, n in per_box.items() for k in floor if n[k] < floor[k]}
     if short:
         raise AssertionError(f"{label}: kernels launched too rarely per forward: {short}")
     for mode, rs in res.items():
         print(f"{label} {mode} (both runs): scans/s {[round(r['scans_per_sec'], 4) for r in rs]}, "
               f"device ms/scan {[round(statistics.mean(r['device_ms']), 3) for r in rs]}",
               flush=True)
-    return res, fwd.per_box, fwd.calls
+    return res, per_box
 
 
 def decoder_runs(net, calls):
@@ -2705,11 +2699,11 @@ def kitti360_phase(dev, cols, lap, infer):
     scans with 8 raw channels: one forward through ``AdaptiveForward``
     after a warm-up (finite outputs of the expected shapes, 19 + 1 query
     classes, every kernel launched exactly ``forward_launch_floor(2)``
-    times), ``run_scene_inference`` and the ``Evaluator`` (19 classes,
-    things 1..6) on the scan through ``infer`` (:func:`start_scene_inference`:
-    its host part overlaps what follows), then one panoptic train step at
-    the train box with finite losses.  Returns the launches of the forward."""
-    from pasco_torch import kernels
+    times in a profiler trace of the replayed forward),
+    ``run_scene_inference`` and the ``Evaluator`` (19 classes, things
+    1..6) on the scan through ``infer`` (:func:`start_scene_inference`: its
+    host part overlaps what follows), then one panoptic train step at the
+    train box with finite losses.  Returns the launches of the forward."""
     from pasco_torch.core.config import kitti360_config
     from pasco_torch.data.kitti360.params import CLASS_FREQUENCIES
     from pasco_torch.inference.dispatch import AdaptiveForward, candidate_boxes, pick_box
@@ -2728,24 +2722,23 @@ def kitti360_phase(dev, cols, lap, infer):
     with torch.no_grad():
         check_output(cfg, fwd(inp, box))                     # warm-up
         torch.cuda.synchronize(dev)
-        kernels.reset_launches()
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         out = fwd(inp, box)
         b.record()
         b.synchronize()
-        launches = dict(kernels.LAUNCHES)
         kept, sub = check_output(cfg, out)
+        calls = profile_call(lambda: fwd(inp, box), reps=3)
+    seq = kernel_sequence(calls[0])
+    launches = {k: seq.count(k) for k in KERNEL_NAMES}
     floor = forward_launch_floor(KITTI360_S)
     print(f"kitti360 forward (n_infers={KITTI360_S}, box {box}): {a.elapsed_time(b):.3f} ms "
           f"between events, query classes {out.predictor.query_logits.shape[-1]}, kept {kept}, "
-          f"kept per subnet {sub}, launches {launches}", flush=True)
-    if {k: launches.get(k, 0) for k in floor} != floor:
+          f"kept per subnet {sub}, launches in a trace {launches}", flush=True)
+    if launches != floor:
         raise AssertionError(f"kitti360 forward: launches {launches}, want {floor}")
     if out.predictor.query_logits.shape[-1] != 19 + 1:
         raise AssertionError("kitti360 forward: not 19 + 1 query classes")
-    with torch.no_grad():
-        calls = profile_call(lambda: fwd(inp, box), reps=3)
     groups = {k: device_ms(calls, f"{k}_kernel") for k in
               ("masked_conv3", "down2", "up_preamble", "extract")}
     print(f"kitti360 forward device ms: {device_ms(calls):.3f} in all; by kernel "
@@ -3267,7 +3260,7 @@ def run_phases(jobs, dev, lap, pool, tmp):
     alternating_extraction(cfg, {352: scans[0], **box_scans}, gen)
     lap("kernels at boxes 256, 288, 320")
     # adaptive and fixed once each (four runs before the batched phases)
-    _, per_box, _ = bench_phase(cfg, scans, net, "bench n_infers=1")
+    _, per_box = bench_phase(cfg, scans, net, "bench n_infers=1")
     two_boxes_check(cfg, net, by_box[288], box_of(cfg, by_box[288][0]))
     lap("bench protocol, n_infers 1")
 
@@ -3403,7 +3396,7 @@ def main():
     for r in rows:
         r["launches_by_path"] = {path: n.get(r["name"], 0) for path, n in by_path.items()}
     for r in box_rows:
-        if "box" in r:        # launches at that box in the bench run (warm-up included)
+        if "box" in r:        # launches of one traced forward at that box in the bench run
             r["launches"] = per_box[tuple(r.pop("box"))][r.pop("kernel")]
         else:                 # a batched case: launches in the batched B=4 forward
             r["launches"] = by_path["batch"][r.pop("kernel")]

@@ -23,7 +23,7 @@ import subprocess
 import threading
 import weakref
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -71,7 +71,8 @@ _SIGNATURES = {
 }
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
-# launches its kernel, and nowhere else.
+# launches its kernel, and nowhere else.  A launch captured into a CUDA
+# graph counts once, at the capture; its replays do not run the wrapper.
 LAUNCHES: Dict[str, int] = {
     "masked_conv3": 0, "conv3_dx": 0, "down2_fused": 0, "up_preamble": 0,
     "stream_extract": 0, "column_conv3": 0, "featurizer": 0, "spc_dense3d": 0,
@@ -79,11 +80,22 @@ LAUNCHES: Dict[str, int] = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_counters: List[Dict[str, int]] = [LAUNCHES]
+
+
+def counters(*names: str) -> Dict[str, int]:
+    """A new dict of counts, one per name, that :func:`reset_launches`
+    zeroes with :data:`LAUNCHES` (a layer above keeps its own there)."""
+    counts = dict.fromkeys(names, 0)
+    _counters.append(counts)
+    return counts
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero :data:`LAUNCHES` and every dict made by :func:`counters`."""
+    for counts in _counters:
+        for k in counts:
+            counts[k] = 0
 
 
 def _sources():

@@ -392,16 +392,43 @@ class DensePaSCoNet(nn.Module):
 
     def _forward(self, inp: ModelInput, labelweights, generator, mc_dropout: bool,
                  is_predict_panop: bool, box_extent) -> ModelOutput:
-        """The forward on a batch of ``B`` scans (``B = 1`` for one)."""
+        """The forward on a batch of ``B`` scans (``B = 1`` for one).  The
+        U-Net's dense volumes live in :meth:`_unet` alone, so they are freed
+        before the transformer, whose working set is the forward's
+        largest."""
+        live = self.training or mc_dropout
+        box = Box.create(inp.global_min, box_extent or self.cfg.scene.box_extent)   # [B, 3]
+        xs, sem_at, panop_grids, sem_pruned = self._unet(
+            inp, labelweights, generator, live, is_predict_panop, box)
+        predictor = None
+        if is_predict_panop:
+            with timing.span("transformer"):
+                predictor = self.transformer(panop_grids, box, generator, live)
+        if sem_pruned is None:   # inference reads none
+            m = self.cfg.model
+            sem_pruned = torch.zeros((inp.point_feats.shape[0], m.n_infers,
+                                      self.cfg.capacity.panop_s1, m.n_classes),
+                                     device=box.minimum.device)
+        return ModelOutput(
+            sem_grids=xs,
+            sem_logits=sem_at,
+            panop_grids=panop_grids,
+            sem_logits_pruned=sem_pruned,
+            predictor=predictor,
+        )
+
+    def _unet(self, inp: ModelInput, labelweights, generator, live: bool,
+              is_predict_panop: bool, box: Box):
+        """Featurizer, encoder, bottleneck, decoder and refiners: the
+        kept cells and logits of each scale, the refined grids and, in
+        training, the pruned logits (else None)."""
         train = self.training
-        live = train or mc_dropout
         cfg = self.cfg
         m = cfg.model
         cap = cfg.capacity
         S = m.n_infers
         B = inp.point_feats.shape[0]
         cd = compute_dtype_of(m)
-        box = Box.create(inp.global_min, box_extent or cfg.scene.box_extent)   # [B, 3]
         ex, ey, ez = box.extent
 
         # ---- point MLP + scatter-max featurizer --------------------------
@@ -512,17 +539,4 @@ class DensePaSCoNet(nn.Module):
                 panop_grids[scale] = stack_grids(sub, dim=1)      # [B, S, cap, ...]
                 if sub_sem:
                     sem_pruned = torch.stack(sub_sem, 1)
-
-        predictor = None
-        if is_predict_panop:
-            with timing.span("transformer"):
-                predictor = self.transformer(panop_grids, box, generator, live)
-        if sem_pruned is None:   # inference reads none
-            sem_pruned = torch.zeros((B, S, cap.panop_s1, m.n_classes), device=x.device)
-        return ModelOutput(
-            sem_grids=xs,
-            sem_logits=sem_at,
-            panop_grids=panop_grids,
-            sem_logits_pruned=sem_pruned,
-            predictor=predictor,
-        )
+        return xs, sem_at, panop_grids, sem_pruned

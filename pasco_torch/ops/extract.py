@@ -62,7 +62,8 @@ class _Workspace:
     """The kernel's look-back flags on one (device, stream): one int64 word
     per tile, zeroed once when allocated.  Every call takes a new epoch,
     which tags the flag words it writes, so no call needs a memset; calls on
-    one stream run in order, so they never share the words at once."""
+    one stream run in order, so they never share the words at once.  A call
+    captured into a CUDA graph takes no workspace (:func:`_launch`)."""
 
     __slots__ = ("buf", "tiles", "epoch", "lock")
 
@@ -112,9 +113,16 @@ def _launch(keep, capacity, payload):
             e = payload.shape[-1]
             kernels.require(payload, "payload", torch.bfloat16, (*keep.shape, e), dev)
         stream = kernels.stream_ptr(keep)
-        key = (dev.index, stream)
-        ws = _WORKSPACES.get(key) or _WORKSPACES.setdefault(key, _Workspace())
-        buf, tiles, epoch = ws.take(-(-n // TILE), dev)
+        if torch.cuda.is_current_stream_capturing():
+            # A CUDA graph replays the epoch it captured, so each replay
+            # would read the flags of the last one as its own: the captured
+            # call zeroes flag words of its own first.
+            buf = torch.zeros((-(-n // TILE),), dtype=torch.int64, device=dev)
+            tiles, epoch = buf.numel(), 1
+        else:
+            key = (dev.index, stream)
+            ws = _WORKSPACES.get(key) or _WORKSPACES.setdefault(key, _Workspace())
+            buf, tiles, epoch = ws.take(-(-n // TILE), dev)
         vals = torch.empty((capacity, e), dtype=torch.bfloat16, device=dev)
         src = torch.empty((capacity,), dtype=torch.int32, device=dev)
         valid = torch.empty((capacity,), dtype=torch.bool, device=dev)

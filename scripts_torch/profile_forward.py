@@ -609,6 +609,9 @@ def main() -> None:
     def forward():
         return fwd(inp, box)
 
+    def eager():   # module hooks run in an eager forward, not in a replayed graph
+        return net(inp, box_extent=box)
+
     res = {"box": list(box), "weights": trained or "seeded random init"}
     with torch.no_grad():
         for _ in range(2):
@@ -623,12 +626,12 @@ def main() -> None:
         res["wall_ms"] = statistics.median(walls)
         res["device_ms"] = statistics.median(devs)
         res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        res["modules_ms"] = module_times(net, forward, ("decoder",) if sparse else ())
+        res["modules_ms"] = module_times(net, eager, ("decoder",) if sparse else ())
         if sparse:
             out = forward()
             res["kept"] = {f"s{sc}": int(out.sem_grids[sc].mask.sum()) for sc in (4, 2, 1)}
         else:
-            res["kept"] = kept_cells(net, forward)
+            res["kept"] = kept_cells(net, eager)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             timing.tracing(True)
             for _ in range(args.iters):

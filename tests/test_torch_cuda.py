@@ -1336,3 +1336,130 @@ def test_sparse_stage_spans_cover_the_dispatch(dev):
     assert sum(r["device_ms"] for r in stages) >= 0.99 * root["device_ms"]
     names = {r["name"] for r in rows}
     assert {"pasco.sparse.conv", "pasco.sparse.rulebook"} <= names
+
+
+# --------------------------------------------------------------------------
+# the dense forward replayed from CUDA graphs (inference/dispatch.py)
+# --------------------------------------------------------------------------
+
+
+def _leaves(v):
+    """Every tensor of a forward's output, in a fixed order."""
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, dict):
+        v = list(v.values())
+    elif hasattr(v, "__dataclass_fields__"):
+        v = [getattr(v, k) for k in v.__dataclass_fields__]
+    return [t for x in v for t in _leaves(x)] if isinstance(v, (list, tuple)) else []
+
+
+def _same(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) > 20 and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _graph_net(dev, n_infers=1, seed=0):
+    import dataclasses
+
+    from pasco_torch.core.config import PaSCoConfig
+    from pasco_torch.models.unet import build_net
+
+    cfg = PaSCoConfig()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, n_infers=n_infers))
+    net = build_net(cfg, dev)
+    net.reset_parameters(torch.Generator().manual_seed(seed))
+    return cfg, net
+
+
+@pytest.mark.parametrize("n_infers", [1, 3])
+def test_graph_forward_bit_equal_at_every_box(dev, n_infers):
+    """Every box candidate captured first (one warm-up, at the first box),
+    then at each box two scans in alternation: each replay's outputs equal
+    the eager forward's bit for bit (a look-back flag left by the last
+    replay would show), the first call's outputs are unchanged by the later
+    calls, a replay adds nothing to ``kernels.LAUNCHES`` (it runs no
+    wrapper), and its profiler trace holds the eager forward's kernels in
+    the eager order, each as often as the eager forward's wrappers count.
+    After the captures ten calls capture nothing."""
+    import chip_smoke as cs
+    from pasco_torch.inference import dispatch
+
+    cfg, net = _graph_net(dev, n_infers)
+    inps = [inp for _, inp in cs.make_scans(cfg, 2, dev)]
+    fwd = dispatch.AdaptiveForward(net)
+    kernels.reset_launches()
+    with torch.no_grad():
+        first = {box: fwd(inps[0], box) for box in fwd.cands}
+        kept = {box: [t.clone() for t in _leaves(out)] for box, out in first.items()}
+        captures = dispatch.GRAPHS["captures"]
+        assert captures == len(fwd.cands) and dispatch.GRAPHS["eager"] == 0
+        for box in fwd.cands:
+            eager = []
+            for inp in inps:
+                before = dict(kernels.LAUNCHES)
+                eager.append(net(inp, box_extent=box))
+                per_eager = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+            for j in (1, 0, 1):
+                before = dict(kernels.LAUNCHES)
+                got = fwd(inps[j], box)
+                assert kernels.LAUNCHES == before
+                assert _same(got, eager[j]), (box, j)
+            assert _same(first[box], eager[0]), box
+            replayed = cs.kernel_sequence(cs.profile_call(lambda: fwd(inps[0], box), reps=3)[0])
+            assert replayed == cs.kernel_sequence(
+                cs.profile_call(lambda: net(inps[0], box_extent=box), reps=3)[0]), box
+            assert {k: replayed.count(k) for k in cs.KERNEL_NAMES} == \
+                {k: per_eager[k] for k in cs.KERNEL_NAMES}, box
+        for box in fwd.cands:
+            assert all(torch.equal(a, b) for a, b in zip(_leaves(first[box]), kept[box])), box
+        replays = dispatch.GRAPHS["replays"]
+        for i in range(10):
+            fwd(inps[i % 2], fwd.cands[i % len(fwd.cands)])
+        torch.cuda.synchronize()
+    assert dispatch.GRAPHS["captures"] == captures
+    assert dispatch.GRAPHS["replays"] == replays + 10
+
+
+def test_graph_forward_recaptures_after_new_weights(dev):
+    """New weights loaded (``load_state_dict``) and one parameter updated in
+    place: each time the graph is captured again and its outputs equal the
+    eager forward's under the new weights."""
+    import chip_smoke as cs
+    from pasco_torch.inference import dispatch
+
+    cfg, net = _graph_net(dev)
+    _, other = _graph_net(dev, seed=1)
+    inp = cs.make_scans(cfg, 1, dev)[0][1]
+    fwd = dispatch.AdaptiveForward(net)
+    box = fwd.cands[-1]
+    kernels.reset_launches()
+    with torch.no_grad():
+        old = fwd(inp, box)
+        net.load_state_dict(other.state_dict())
+        got = fwd(inp, box)
+        assert dispatch.GRAPHS["captures"] == 2
+        assert _same(got, net(inp, box_extent=box)) and not _same(got, old)
+        net.dec_s1.head_bias.add_(0.5)
+        got = fwd(inp, box)
+        assert dispatch.GRAPHS["captures"] == 3
+        assert _same(got, net(inp, box_extent=box))
+
+
+def test_graph_forward_batch_of_two(dev):
+    """A batch of two scans (B = 2) replays from its own graph and equals
+    the eager batched forward bit for bit."""
+    import chip_smoke as cs
+    from pasco_torch.inference import dispatch
+    from pasco_torch.models.unet import stack_inputs
+
+    cfg, net = _graph_net(dev)
+    batch = stack_inputs([inp for _, inp in cs.make_scans(cfg, 2, dev)])
+    fwd = dispatch.AdaptiveForward(net)
+    box = fwd.cands[-1]
+    kernels.reset_launches()
+    with torch.no_grad():
+        for _ in range(2):
+            assert _same(fwd(batch, box), net(batch, box_extent=box))
+    assert dispatch.GRAPHS["captures"] == 1 and dispatch.GRAPHS["replays"] == 2
